@@ -7,21 +7,25 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``spacedrive_tpu_torch/csrc`` with
 ``nvcc``, drives the identify and validate hash paths through the entry
-points a user calls, holds every kernel against its plain torch version on
-the same inputs on the card (bit-exact: the data is integer hashes), checks
-results against the pure-Python BLAKE3 oracle, and times each kernel with
-CUDA events. Phases:
+points a user calls, holds every kernel form against its plain torch
+version on the same inputs on the card (bit-exact: the data is integer
+hashes), checks results against the pure-Python BLAKE3 oracle, and times
+each kernel with CUDA events. Phases:
 
-1. build   — compile the kernels, print the build time and ptxas report;
+1. build   — compile the kernels, print the build time, the ptxas report
+   and the SASS instruction mix of one compression in the chunk loop
+   (beside the function's own operation counts, which set the bound);
 2. identify step — B = 16384 large-file rows ([16384, 57, 256] words, the
-   identifier's device step) through ``blake3_torch.blake3_words``;
+   identifier's device step): K1's CV form, K1 fused (chunk + tree in one
+   launch) and the plain chunk and tree stages;
 3. small grid — B = 2048 rows at C = 101 with edge lengths;
 4. real files — a 16384-file corpus through
    ``staging.cas_ids_for_files(backend="cuda")`` (the identify main path),
    against ``backend="plain"``, the oracle, and duplicate grouping;
 5. validate — ``validator.checksums_for_files`` on a small-file page and a
-   multi-window streamed file (the validate main path), the windowed
-   kernel per window and at counter bases straddling 2**32;
+   multi-window streamed file (the validate main path); K2's CV form, K2
+   fused and the tree fold per 8 MiB window, counter bases straddling
+   2**32, and the dependent latency of one compression;
 6. the kernel table as one JSON line.
 
 Launch counts are reset just before each main path (phases 4 and 5) and
@@ -32,8 +36,9 @@ passed. The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import json
-import statistics
+import re
 import subprocess
 import sys
 import tempfile
@@ -45,14 +50,37 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-# Peak rate for 32-bit integer work: each SM's 4 schedulers issue one
-# 32-lane warp instruction per clock. Integer adds also issue on the FMA
-# pipe (IMAD), so the 64-lane INT32 pipe alone is no lower bound.
-INT_LANES_PER_SM_CLOCK = 128
-# Fewest 32-bit integer instructions per compression: per G two 3-input
-# adds (IADD3), two adds, four xors, four rotates (one SHF/PRMT each);
-# 7 rounds x 8 G, then 8 output xors.
-OPS_PER_COMPRESSION = 7 * 8 * 12 + 8
+# Integer lanes per SM per clock on Hopper (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0: 32-bit integer
+# add, shift, bitwise and multiply-add each run 64 lanes per SM per clock).
+# The ALU pipe takes IADD3, LOP3, SHF, PRMT and the rest of the integer
+# and logic work; IMAD and IMUL go to the FMA pipe; the 4 schedulers issue
+# 128 lanes per clock in all.
+ALU_LANES = 64
+ISSUE_LANES = 128
+# One BLAKE3 compression: 7 rounds x 8 G, each 4 adds (two of them
+# three-input, one IADD3 each), 4 xors and 4 rotates, plus 8 output xors.
+# The xors and rotates run only on the ALU pipe (LOP3, SHF or PRMT); an
+# add may issue on the FMA pipe as IMAD instead. So a compression needs at
+# least max(456 / ALU_LANES, 680 / ISSUE_LANES) SM cycles per lane.
+COMPRESSION_OPS = 7 * 8 * 12 + 8         # 680
+COMPRESSION_ALU_OPS = 7 * 8 * 8 + 8      # 456
+LANE_CYCLES = max(COMPRESSION_ALU_OPS / ALU_LANES, COMPRESSION_OPS / ISSUE_LANES)
+# Opcodes of the compiled chunk loop by pipe, for the SASS diagnostic.
+FMA_OPS = {"IMAD", "IMUL", "IDP"}
+ALU_OPS = {"IADD3", "LOP3", "SHF", "PRMT", "ISETP", "SEL", "LEA", "IMNMX",
+           "MOV", "IABS", "FLO", "POPC", "BMSK", "SGXT", "PLOP3", "P2R", "R2P",
+           "VIADD", "VIMNMX", "LOP", "IADD", "SHL", "SHR"}
+# Cycles per second of the sleep kernel queued ahead of a timed run (about
+# the card's max SM clock; a slower clock only lengthens the sleep).
+SLEEP_CYCLES_PER_S = 2.0e9
+# Devices this run uses.
+RUN_DEVICES = 1
+# Slice 1's device time per main-path unit (PERF.md, NVIDIA H100 80GB HBM3
+# at 700 W): chunk kernel + plain torch tree, per identify step and per
+# 8 MiB window.
+SLICE1_STEP_MS = 0.6069 + 37.5385
+SLICE1_WINDOW_MS = 0.2344 + 82.87
 
 
 class SmokeFailure(AssertionError):
@@ -75,21 +103,31 @@ def nvidia_smi(query: str) -> str:
     return out.strip().splitlines()[0].strip()
 
 
-def time_cuda(fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
-    for _ in range(warmup):
-        fn()
+def time_device(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over `reps` back-to-back calls on
+    the current stream (CUDA events), after one warm-up call.
+
+    A sleep kernel queued first lasts twice as long as the host takes to
+    enqueue the calls, so the card runs them back to back: a launch shorter
+    than its own host overhead is timed on the device, not at the host's
+    enqueue rate. (Calls that block the host, like the plain versions'
+    many small launches, are timed at the rate they really run.)
+    """
+    fn()
     torch.cuda.synchronize()
-    times = []
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * reps * host_s, 2.0) * SLEEP_CYCLES_PER_S))
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -108,25 +146,89 @@ def compressions_of(lengths: np.ndarray) -> int:
     return int(np.maximum((lengths + 63) // 64, 1).sum())
 
 
+def n_chunks_np(lengths: np.ndarray) -> np.ndarray:
+    lengths = np.asarray(lengths, dtype=np.int64)
+    return np.maximum((lengths + 1023) // 1024, 1)
+
+
+def span_of(C: int, span: int) -> int:
+    """The fused launch's S for a C-chunk grid (ops/blake3_cuda._geometry)."""
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    return 1 << blake3_cuda._geometry(C, span)[0]
+
+
+def chunk_work(lengths: np.ndarray, C: int, span: int, fused: bool) -> tuple:
+    """(compressions, bytes) of one chunk-kernel launch on this data.
+
+    Active message blocks and lengths are read once. The CV form writes
+    [8, B, C] CVs; the fused form adds the parents inside each span and
+    writes one 32-byte top per span that holds chunks.
+    """
+    blocks = compressions_of(lengths)
+    B = len(lengths)
+    if not fused:
+        return blocks, blocks * 64 + 4 * B + 32 * B * C
+    n = n_chunks_np(lengths)
+    spans = -(-n // span_of(C, span))
+    return blocks + int((n - spans).sum()), blocks * 64 + 4 * B + 32 * int(spans.sum())
+
+
+def fold_work(lengths: np.ndarray, C: int, span: int) -> tuple:
+    """(parent compressions, bytes) of the folds after a fused launch."""
+    n = n_chunks_np(lengths)
+    spans = -(-n // span_of(C, span))
+    return int((spans - 1).sum()), 32 * int(spans.sum()) + 4 * len(lengths) + 32 * len(lengths)
+
+
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)(.*)")
+SASS_TARGET = re.compile(r"\bBRA\s+(?:`\(\s*)?(0x[0-9a-f]+)")
+
+
+def sass_loop_opcodes(sass: str, kernel: str) -> collections.Counter:
+    """Opcodes of the largest loop (a branch back to an earlier address, up
+    to that branch) in the SASS of the function whose mangled name contains
+    `kernel`."""
+    funcs = sass.split("Function : ")[1:]
+    body = next((f for f in funcs if kernel in f.split("\n", 1)[0]), None)
+    require(body is not None, f"no SASS function matching {kernel}")
+    insns, best = [], None
+    for line in body.splitlines():
+        m = SASS_INSN.search(line)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        insns.append((addr, m.group(2)))
+        target = SASS_TARGET.search(m.group(2) + m.group(3))
+        if target and int(target.group(1), 16) < addr:
+            lo = int(target.group(1), 16)
+            if best is None or addr - lo > best[1] - best[0]:
+                best = (lo, addr)
+    require(best is not None, f"no loop in the SASS of {kernel}")
+    return collections.Counter(op for addr, op in insns if best[0] <= addr <= best[1])
+
+
 class Bound:
-    """Least time the card could take: max(ops / integer issue rate, bytes / HBM)."""
+    """Least time the card could take: max(compressions x LANE_CYCLES over
+    the SMs at their max clock, bytes / HBM rate)."""
 
     def __init__(self):
         props = torch.cuda.get_device_properties(0)
         self.sms = props.multi_processor_count
         clock = nvidia_smi("clocks.max.sm").split()[0]
         self.clock_mhz = float(clock)
-        self.int_ops_per_s = self.sms * INT_LANES_PER_SM_CLOCK * self.clock_mhz * 1e6
 
-    def chunk_stage(self, lengths: np.ndarray, C: int) -> tuple:
-        n = compressions_of(lengths)
-        ops = n * OPS_PER_COMPRESSION
-        # active message blocks + lengths read once, [8, B, C] CVs written once
-        nbytes = n * 64 + 4 * len(lengths) + 32 * len(lengths) * C
-        t_ops = ops / self.int_ops_per_s * 1e3
+    def ms(self, compressions: int, nbytes: int) -> tuple:
+        t_ops = compressions * LANE_CYCLES / (self.sms * self.clock_mhz * 1e6) * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-                ops, nbytes)
+        return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_stats(bound: Bound, ms: float, plain_ms: float, work: tuple, err: int,
+                 shape) -> dict:
+    bound_ms, bound_by = bound.ms(*work)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, shape=list(shape), compressions=work[0], bytes=work[1])
 
 
 def phase_build():
@@ -135,10 +237,23 @@ def phase_build():
     t0 = time.perf_counter()
     _build.library("blake3_chunk")
     seconds = time.perf_counter() - t0
-    log = _build.library_path("blake3_chunk").with_suffix(".log").read_text()
+    lib = _build.library_path("blake3_chunk")
+    log = lib.with_suffix(".log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit("build", seconds=seconds, ptxas=ptxas)
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    # The chunk loop of K1's CV form: one block compression per iteration.
+    # What this build issues, beside what the function needs (the bound).
+    ops = sass_loop_opcodes(sass, "blake3_chunk_spanILb0ELb0EE")
+    alu = sum(v for k, v in ops.items() if k in ALU_OPS)
+    fma = sum(v for k, v in ops.items() if k in FMA_OPS)
+    emit("build", seconds=seconds, ptxas=ptxas, sass_loop_opcodes=dict(ops.most_common()),
+         compiled=dict(alu_insns=alu, fma_insns=fma, issued=sum(ops.values()),
+                       alu_cycles_per_lane=alu / ALU_LANES),
+         function=dict(ops=COMPRESSION_OPS, alu_ops=COMPRESSION_ALU_OPS,
+                       lane_cycles=LANE_CYCLES))
 
 
 def phase_identify_step(bound: Bound, stats: dict):
@@ -150,38 +265,45 @@ def phase_identify_step(bound: Bound, stats: dict):
     payloads = rng.integers(0, 256, size=(B, cas.LARGE_PAYLOAD_SIZE), dtype=np.uint8)
     sizes = rng.integers(200_000, 50_000_000, size=B).astype(np.uint64)
     words, lengths = bb.build_cas_messages(payloads, sizes)
+    C = words.shape[1]
     require(words.shape == (B, blake3_torch.LARGE_CHUNKS, 256), f"grid {words.shape}")
     w, n = blake3_torch.words_to_device(words, lengths, "cuda")
 
     cvs, n_chunks = blake3_cuda.chunk_cvs_fast(w, n)
     cvs_plain, n_plain = bb.chunk_cvs(w, n)
-    err = max_abs_err(cvs, cvs_plain)
-    require(err == 0 and torch.equal(n_chunks, n_plain), "K1 != plain at the identify step")
-    digests = blake3_torch.blake3_words(w, n, "cuda")
+    err_cv = max_abs_err(cvs, cvs_plain)
+    require(err_cv == 0 and torch.equal(n_chunks, n_plain), "K1 CV != plain at the identify step")
     plain_digests = bb.tree_reduce(cvs_plain, n_plain)
-    require(max_abs_err(digests, plain_digests) == 0, "digests != plain at the identify step")
+    digests = blake3_torch.blake3_words(w, n, "cuda")
+    err = max_abs_err(digests, plain_digests)
+    require(err == 0, "K1 fused digests != plain at the identify step")
     got = bb.digests_to_cas_ids(blake3_torch.digests_to_numpy(digests))
     for row in (0, B // 2, B - 1):
         require(got[row] == cas.cas_id_of_payload(int(sizes[row]), payloads[row].tobytes()),
                 f"row {row} != oracle")
 
-    k_ms = time_cuda(lambda: blake3_cuda.chunk_cvs_fast(w, n), reps=20)
-    plain_ms = time_cuda(lambda: bb.chunk_cvs(w, n), reps=3)
-    tree_ms = time_cuda(lambda: bb.tree_reduce(cvs, n_chunks), reps=20)
+    cv_ms = time_device(lambda: blake3_cuda._chunk(w, n, windowed=False, fused=False), reps=20)
+    fused_ms = time_device(lambda: blake3_cuda.blake3_words(w, n), reps=20)
+    plain_chunk_ms = time_device(lambda: bb.chunk_cvs(w, n), reps=3)
+    plain_tree_ms = time_device(lambda: bb.tree_reduce(cvs, n_chunks), reps=5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     e2e = blake3_torch.blake3_words(words, lengths, "cuda")
     blake3_torch.digests_to_numpy(e2e)
     e2e_s = time.perf_counter() - t0
-    bound_ms, bound_by, ops, nbytes = bound.chunk_stage(lengths, words.shape[1])
-    stats["fast"] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                         max_abs_err=err, shape=list(words.shape))
-    emit("identify_step", B=B, C=words.shape[1], kernel_ms=k_ms, plain_ms=plain_ms,
-         tree_ms=tree_ms, files_per_s_device=B / ((k_ms + tree_ms) / 1e3),
+    stats[blake3_cuda.FAST_CVS] = kernel_stats(
+        bound, cv_ms, plain_chunk_ms, chunk_work(lengths, C, blake3_cuda.SPAN, False),
+        err_cv, words.shape)
+    stats[blake3_cuda.FAST] = kernel_stats(
+        bound, fused_ms, plain_chunk_ms + plain_tree_ms,
+        chunk_work(lengths, C, blake3_cuda.SPAN, True), err, words.shape)
+    emit("identify_step", B=B, C=C, k1_cv_ms=cv_ms, k1_fused_ms=fused_ms,
+         plain_chunk_ms=plain_chunk_ms,
+         plain_tree_ms=plain_tree_ms, device_ms=fused_ms,
+         slice1_device_ms=SLICE1_STEP_MS, files_per_s_device=B / (fused_ms / 1e3),
          e2e_h2d_hash_d2h_s=e2e_s, e2e_files_per_s=B / e2e_s,
-         bound_ms=bound_ms, bound_by=bound_by, int_ops=ops, bytes=nbytes,
-         roofline_share=bound_ms / k_ms,
-         launches_fast_in_phase=blake3_cuda.launches["blake3_chunk_fast"])
+         cv=stats[blake3_cuda.FAST_CVS], fused=stats[blake3_cuda.FAST],
+         roofline_share_fused=stats[blake3_cuda.FAST]["bound_ms"] / fused_ms)
 
 
 def phase_small_grid(stats: dict):
@@ -198,13 +320,18 @@ def phase_small_grid(stats: dict):
     w, n = blake3_torch.words_to_device(words, lengths, "cuda")
     cvs, n_chunks = blake3_cuda.chunk_cvs_fast(w, n)
     cvs_plain, n_plain = bb.chunk_cvs(w, n)
-    err = max_abs_err(cvs, cvs_plain)
-    require(err == 0 and torch.equal(n_chunks, n_plain), "K1 != plain on the small grid")
-    hexes = bb.digests_to_hex(blake3_torch.digests_to_numpy(bb.tree_reduce(cvs, n_chunks)))
+    err_cv = max_abs_err(cvs, cvs_plain)
+    require(err_cv == 0 and torch.equal(n_chunks, n_plain), "K1 CV != plain on the small grid")
+    digests = blake3_cuda.blake3_words(w, n)
+    err = max_abs_err(digests, bb.tree_reduce(cvs_plain, n_plain))
+    require(err == 0, "K1 fused != plain on the small grid")
+    hexes = bb.digests_to_hex(blake3_torch.digests_to_numpy(digests))
     for i in range(len(edges)):
         require(hexes[i] == blake3_ref.blake3_hex(msgs[i]), f"edge length {lens[i]} != oracle")
-    stats["fast"]["max_abs_err"] = max(stats["fast"]["max_abs_err"], err)
-    emit("small_grid", B=B, C=101, max_abs_err=err, edge_lengths=edges)
+    for name, e in ((blake3_cuda.FAST_CVS, err_cv), (blake3_cuda.FAST, err)):
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], e)
+    emit("small_grid", B=B, C=101, max_abs_err_cv=err_cv, max_abs_err_fused=err,
+         edge_lengths=edges)
 
 
 def _sparse_file(path: Path, size: int, marks: bytes) -> None:
@@ -281,7 +408,7 @@ def phase_real_files(workdir: Path, counts: dict):
     ids, errors = staging.cas_ids_for_files(files, backend="cuda")
     identify_s = time.perf_counter() - t0
     counts["identify"] = dict(blake3_cuda.launches)
-    require(counts["identify"]["blake3_chunk_fast"] > 0, "identify path launched no K1")
+    require(counts["identify"][blake3_cuda.FAST] > 0, "identify path launched no K1")
 
     t0 = time.perf_counter()
     plain_ids, plain_errors = staging.cas_ids_for_files(files, backend="plain")
@@ -354,8 +481,8 @@ def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
     validate_s = time.perf_counter() - t0
     counts["validate"] = dict(blake3_cuda.launches)
     require(not errors, f"validator errors {errors}")
-    require(counts["validate"]["blake3_chunk_fast"] > 0, "validate path launched no K1")
-    require(counts["validate"]["blake3_chunk_windowed"] > 0, "validate path launched no K2")
+    for name in (blake3_cuda.FAST, blake3_cuda.WINDOWED, blake3_cuda.FOLD):
+        require(counts["validate"][name] > 0, f"validate path launched no {name}")
 
     plain, _ = validator.checksums_for_files(page, "cpu")
     require(all(sums[i] == plain[i] for i in range(len(page))), "page != plain")
@@ -364,10 +491,10 @@ def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
     require(sums[len(page)] == seqhash.file_checksum_streaming(big, "cpu"),
             "streamed big file != plain streamed")
 
-    # K2 against plain on the card, window by window of the big file.
+    # K2's two forms against plain on the card, window by window.
     data = big.read_bytes()
-    err = 0
-    window_lengths = []
+    err_cv = err_top = 0
+    n_windows = 0
     for k in range(0, len(data), window):
         chunk = data[k:k + window]
         buf = np.zeros(window, np.uint8)
@@ -377,12 +504,16 @@ def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
         base = k // bb.CHUNK_LEN
         got, got_n = blake3_cuda.chunk_cvs(w, n, base, whole=False)
         ref, ref_n = bb.chunk_cvs(w, n, base, whole=False)
-        err = max(err, max_abs_err(got, ref))
+        err_cv = max(err_cv, max_abs_err(got, ref))
         require(torch.equal(got_n, ref_n), "K2 n_chunks != plain")
-        window_lengths.append(len(chunk))
-    require(err == 0, "K2 != plain on the big file's windows")
+        err_top = max(err_top, max_abs_err(blake3_cuda.window_top(w, n, base),
+                                           bb.tree_reduce(ref, ref_n, root=False)[0]))
+        n_windows += 1
+    require(err_cv == 0, "K2 CV != plain on the big file's windows")
+    require(err_top == 0, "K2 fused window top != plain on the big file's windows")
 
-    # K2 at counter bases straddling 2**32, and a one-chunk non-whole window.
+    # K2 at counter bases straddling 2**32 (per-file bases: one pinned copy),
+    # window tops there, and a one-chunk non-whole window.
     words = rng.integers(0, 2**32, size=(5, 8, 256), dtype=np.uint32)
     lengths = np.array([8192, 5000, 1024, 0, 700], np.int32)
     bases = np.array([2**32 - 3, 2**32 - 1, 2**32, 2**40 + 7, 0], np.uint64)
@@ -391,8 +522,14 @@ def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
     n = torch.from_numpy(lengths).to("cuda")
     got, _ = blake3_cuda.chunk_cvs(w, n, bases, whole)
     ref, _ = bb.chunk_cvs(w, n, bases, whole)
-    err = max(err, max_abs_err(got, ref))
-    require(err == 0, "K2 != plain at counter bases straddling 2**32")
+    err_cv = max(err_cv, max_abs_err(got, ref))
+    require(err_cv == 0, "K2 CV != plain at counter bases straddling 2**32")
+    for row, base in ((0, 2**32 - 3), (1, 2**32 - 1), (0, 2**40 + 7)):
+        ref, ref_n = bb.chunk_cvs(w[row:row + 1], n[row:row + 1], base, whole=False)
+        err_top = max(err_top, max_abs_err(
+            blake3_cuda.window_top(w[row:row + 1], n[row:row + 1], base),
+            bb.tree_reduce(ref, ref_n, root=False)[0]))
+    require(err_top == 0, "K2 fused window top != plain at counter bases past 2**32")
     msg = rng.integers(0, 256, 700, dtype=np.uint8).tobytes()
     mw, ml = bb.pack_messages([msg])
     mw, ml = bb.words_to_tensor(mw, "cuda"), torch.from_numpy(ml).to("cuda")
@@ -404,27 +541,95 @@ def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
             == blake3_ref.blake3_hex(msg), "K2 whole=True != oracle")
     require(not torch.equal(rooted, window_cv), "whole=False window was ROOT-finalized")
 
-    # A ~3 MiB file in small windows against the oracle.
+    # A ~3 MiB file in 256 KiB windows (two spans and a fold each) against the oracle.
     mid = root / "mid"
     mid.write_bytes(rng.integers(0, 256, 3 * 2**20 + 777, dtype=np.uint8).tobytes())
     require(seqhash.file_checksum_streaming(mid, "cuda", 256) == cas.file_checksum(mid),
             "3 MiB streamed file != oracle")
 
-    # K2 time at the validator's window shape: one full 8 MiB window.
+    # One full 8 MiB window at the validator's shape, device inputs prepared:
+    # K2 CV, K2 fused (span tops), the fold, and window_top.
     buf = np.frombuffer(data[:window], np.uint8)
     w = bb.words_to_tensor(buf.view("<u4").reshape(1, -1, 256), "cuda")
     n = torch.tensor([window], dtype=torch.int32, device="cuda")
-    k_ms = time_cuda(lambda: blake3_cuda.chunk_cvs(w, n, 8192, whole=False), reps=50)
-    plain_ms = time_cuda(lambda: bb.chunk_cvs(w, n, 8192, whole=False), reps=3)
-    cvs, n_chunks = blake3_cuda.chunk_cvs(w, n, 8192, whole=False)
-    tree_ms = time_cuda(lambda: bb.tree_reduce(cvs, n_chunks, root=False), reps=20)
-    bound_ms, bound_by, ops, nbytes = bound.chunk_stage(np.array([window]), w.shape[1])
-    stats["windowed"] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             max_abs_err=err, shape=list(w.shape))
+    C, base, lens = w.shape[1], 8192, np.array([window])
+    S = span_of(C, blake3_cuda.SPAN)
+    cvs_plain, n_plain = bb.chunk_cvs(w, n, base, whole=False)
+    top_plain = bb.tree_reduce(cvs_plain, n_plain, root=False)[0]
+    # Every span of a full window is full, so the plain span tops are the
+    # spans reduced as separate S-chunk messages, and their fold a message
+    # of C / S tops.
+    span_cvs = cvs_plain.view(8, C // S, S)
+    span_n = torch.full((C // S,), S, dtype=torch.int32, device="cuda")
+    tops_plain = bb.tree_reduce(span_cvs, span_n, root=False)
+    fold_in = tops_plain.T.contiguous().view(8, 1, C // S)
+    fold_n = torch.tensor([C // S], dtype=torch.int32, device="cuda")
+
+    def k2_fused():
+        return blake3_cuda._chunk(w, n, windowed=True, fused=True, counter_base=base)
+
+    tops = k2_fused()
+    err_k2 = max_abs_err(tops.view(-1, 8), tops_plain)
+    require(err_k2 == 0, "K2 fused span tops != plain")
+    level = S.bit_length() - 1
+    folded = blake3_cuda._fold(tops, n, level, windowed=True)
+    err_fold = max_abs_err(folded[0], top_plain)
+    require(err_fold == 0, "fold != plain tree")
+    require(max_abs_err(bb.tree_reduce(fold_in, fold_n, root=False)[0], top_plain) == 0,
+            "plain span decomposition != plain tree")
+    def k2_cv(words, length, counter_base):
+        return blake3_cuda._chunk(words, length, windowed=True, fused=False,
+                                  counter_base=counter_base, whole=False)
+
+    cv_ms = time_device(lambda: k2_cv(w, n, base), reps=200)
+    fused_ms = time_device(k2_fused, reps=200)
+    fold_ms = time_device(lambda: blake3_cuda._fold(tops, n, level, windowed=True), reps=200)
+    plain_chunk_ms = time_device(lambda: bb.chunk_cvs(w, n, base, whole=False), reps=3)
+    plain_spans_ms = time_device(lambda: bb.tree_reduce(span_cvs, span_n, root=False), reps=5)
+    plain_fold_ms = time_device(lambda: bb.tree_reduce(fold_in, fold_n, root=False), reps=5)
+    plain_tree_ms = time_device(lambda: bb.tree_reduce(cvs_plain, n_plain, root=False), reps=5)
+
+    # Dependent latency of one compression: a one-lane launch with 16
+    # blocks against one with 1 block.
+    z = torch.zeros((1, 1, 256), dtype=torch.int32, device="cuda")
+    full, one = (torch.tensor([k], dtype=torch.int32, device="cuda") for k in (1024, 64))
+    t16 = time_device(lambda: k2_cv(z, full, 0), reps=500)
+    t1 = time_device(lambda: k2_cv(z, one, 0), reps=500)
+    latency_ms = (t16 - t1) / 15
+    depth = 16 + (C - 1).bit_length()
+    floor_ms = depth * latency_ms
+
+    fold_parents, fold_bytes = fold_work(lens, C, blake3_cuda.SPAN)
+    stats[blake3_cuda.WINDOWED_CVS] = kernel_stats(
+        bound, cv_ms, plain_chunk_ms, chunk_work(lens, C, blake3_cuda.SPAN, False),
+        err_cv, w.shape)
+    stats[blake3_cuda.WINDOWED] = kernel_stats(
+        bound, fused_ms, plain_chunk_ms + plain_spans_ms,
+        chunk_work(lens, C, blake3_cuda.SPAN, True), max(err_k2, err_top), w.shape)
+    stats[blake3_cuda.FOLD] = kernel_stats(
+        bound, fold_ms, plain_fold_ms, (fold_parents, fold_bytes), err_fold,
+        [1, C // S, 8])
+    window_ms = time_device(lambda: blake3_cuda.window_top(w, n, base), reps=200)
     emit("validate", files=len(paths), validate_s=validate_s, launches=counts["validate"],
-         big_file_bytes=len(data), windows=len(window_lengths), window_kernel_ms=k_ms,
-         window_plain_ms=plain_ms, window_tree_ms=tree_ms, bound_ms=bound_ms,
-         bound_by=bound_by, int_ops=ops, bytes=nbytes, max_abs_err=err)
+         big_file_bytes=len(data), windows=n_windows, k2_cv_ms=cv_ms, k2_fused_ms=fused_ms,
+         fold_ms=fold_ms, window_top_ms=window_ms,
+         slice1_window_ms=SLICE1_WINDOW_MS, plain_chunk_ms=plain_chunk_ms,
+         plain_tree_ms=plain_tree_ms, plain_span_tops_ms=plain_spans_ms,
+         plain_fold_ms=plain_fold_ms, compression_latency_ms=latency_ms,
+         one_lane_16_blocks_ms=t16, one_lane_1_block_ms=t1,
+         latency_floor_ms=floor_ms, latency_floor_depth=depth,
+         cv=stats[blake3_cuda.WINDOWED_CVS], fused=stats[blake3_cuda.WINDOWED],
+         fold=stats[blake3_cuda.FOLD])
+
+
+REPLACES = {
+    "blake3_chunk_fast": "spacedrive_tpu/ops/blake3_pallas.py:121",
+    "blake3_chunk_fast_cvs": "spacedrive_tpu/ops/blake3_pallas.py:121",
+    "blake3_chunk_windowed": "spacedrive_tpu/ops/blake3_pallas.py:210",
+    "blake3_chunk_windowed_cvs": "spacedrive_tpu/ops/blake3_pallas.py:210",
+    # tree_reduce is jnp in the JAX package: no Pallas counterpart.
+    "blake3_tree_fold": "spacedrive_tpu/ops/blake3_batch.py:231",
+}
 
 
 def main() -> int:
@@ -441,7 +646,7 @@ def main() -> int:
     torch.cuda.set_device(0)
     bound = Bound()
     emit("device", name=torch.cuda.get_device_name(0), sms=bound.sms,
-         max_sm_clock_mhz=bound.clock_mhz, int32_ops_per_s=bound.int_ops_per_s)
+         max_sm_clock_mhz=bound.clock_mhz)
 
     stats, counts = {}, {}
     t_all = time.perf_counter()
@@ -455,12 +660,13 @@ def main() -> int:
         phase_validate(Path(tmp), bound, counts, stats)
 
     kernels = []
-    for name, key, replaces in (
-            (blake3_cuda.FAST, "fast", "spacedrive_tpu/ops/blake3_pallas.py:121"),
-            (blake3_cuda.WINDOWED, "windowed", "spacedrive_tpu/ops/blake3_pallas.py:210")):
-        s = stats[key]
+    for name, replaces in REPLACES.items():
         launches = sum(c[name] for c in counts.values())
-        require(launches > 0, f"{name} never launched on a main path")
+        if name in (blake3_cuda.FAST, blake3_cuda.WINDOWED, blake3_cuda.FOLD):
+            require(launches > 0, f"{name} never launched on a main path")
+        elif launches == 0:
+            continue  # a CV form: held against plain above, on no main path
+        s = stats[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "spacedrive_tpu_torch/csrc/blake3_chunk.cu",
@@ -469,12 +675,13 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": None, "shape": s["shape"],
         })
+    emit("forms", **{name: stats[name] for name in REPLACES})
     emit("done", seconds=time.perf_counter() - t_all, launches_by_path=counts)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": RUN_DEVICES}}), flush=True)
     return 0
 
 

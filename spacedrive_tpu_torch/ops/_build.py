@@ -34,14 +34,16 @@ NVCC_FLAGS = (
 # name → (argtypes, restype) of each exported C function, per source.
 _SIGNATURES = {
     "blake3_chunk": {
-        "sd_blake3_chunk_fast": (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
+        "sd_blake3_chunk": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint,
+             ctypes.c_uint, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p],
             ctypes.c_int),
-        "sd_blake3_chunk_windowed": (
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
+        "sd_blake3_tree_fold": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p],
             ctypes.c_int),
         "sd_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },

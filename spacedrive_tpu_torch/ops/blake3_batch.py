@@ -8,10 +8,11 @@ Port of ``spacedrive_tpu/ops/blake3_batch.py``. Two halves:
   (``le64(size) ‖ payload ‖ zeros`` rows for CAS IDs) and format digests.
 - **The plain torch version of the device math**: ``chunk_prelude``,
   ``block_meta``, ``compress_cv``, ``chunk_cvs`` and ``tree_reduce``. It is
-  the plain counterpart of both CUDA chunk kernels in
-  ``ops/blake3_cuda.py`` (what a wrapper runs for a CPU tensor, and what
-  ``chip_smoke.py`` holds the kernels against on the card), and
-  ``tree_reduce`` is the tree stage of the main path on the device.
+  the plain counterpart of the CUDA kernels in ``ops/blake3_cuda.py``
+  (what a wrapper runs for a CPU tensor, and what ``chip_smoke.py`` holds
+  the kernels against on the card). ``tree_reduce_spans`` is the span-top
+  + fold decomposition the fused kernels run, kept for the tests that pin
+  it against ``tree_reduce``.
 
 Word forms. PyTorch has no uint32 arithmetic on the CPU (add, shift and
 compare raise for UInt32), so the plain math carries every 32-bit word as
@@ -275,6 +276,54 @@ def tree_reduce(cvs, n_chunks, root=True):
         n = torch.clamp((n + 1) // 2, min=1)
         C = half
     return as_i32(cvs[:, :, 0].T.contiguous())
+
+
+def _pair_level(x, n_chunks, level: int, root: bool, first):
+    """One level of adjacent pairing over [8, B, R, 2k] (R aligned runs
+    whose node 0 has global index `first` [R]) at global `level`."""
+    width = x.shape[-1]
+    n = (n_chunks.to(torch.int64)[:, None, None] + (1 << level) - 1) >> level
+    left, right = x[..., 0::2], x[..., 1::2]
+    half = width // 2
+    gp = first[None, :, None] * half + torch.arange(half, device=x.device)[None, None, :]
+    merged_real = gp * 2 + 1 < n
+    is_root = (n == 2) & (gp == 0) & root
+    flags = PARENT + is_root.to(torch.int64) * ROOT
+    parent = compress_cv(list(IV), list(left.unbind(0)) + list(right.unbind(0)),
+                         0, 0, BLOCK_LEN, flags)
+    return torch.where(merged_real, torch.stack(parent), left)
+
+
+def tree_reduce_spans(cvs, n_chunks, span: int, root=True):
+    """``tree_reduce`` as the fused CUDA kernels compute it.
+
+    cvs: [8, B, C] int32; returns [B, 8] int32, equal to
+    ``tree_reduce(cvs, n_chunks, root)``. Each pass cuts the nodes into
+    aligned runs of S = min(span, next_pow2(nodes)) (span a power of two),
+    reduces every run to its top with log2(S) levels of the global rule
+    (a pair merges iff its global right index is below the level's
+    n = ceil(n_chunks / 2^level), ROOT iff `root`, n == 2 and the global
+    pair index is 0), and repeats on the tops until one is left. A pass is
+    one chunk-kernel or fold launch (blake3_chunk_span / blake3_tree_fold
+    in csrc/blake3_chunk.cu). Only tests use it.
+    """
+    if span < 1 or span & (span - 1):
+        raise ValueError(f"span must be a power of two, got {span}")
+    x = as_i64(cvs)
+    _, B, nodes = x.shape
+    level = 0
+    while True:
+        S = min(span, 1 << (nodes - 1).bit_length())
+        runs = -(-nodes // S)
+        x = torch.cat([x, torch.zeros((8, B, runs * S - nodes), dtype=torch.int64,
+                                      device=x.device)], dim=2).view(8, B, runs, S)
+        first = torch.arange(runs, dtype=torch.int64, device=x.device)
+        for _ in range(S.bit_length() - 1):
+            x = _pair_level(x, n_chunks, level, root, first)
+            level += 1
+        x, nodes = x[..., 0], runs
+        if nodes == 1:
+            return as_i32(x[:, :, 0].T.contiguous())
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,11 @@ window_chunks)`` and ``sharded_file_checksum`` becomes
 BLAKE3's tree over chunk CVs is adjacent pairing with odd-promote, so a
 power-of-two-aligned span of chunks reduces to an independent subtree top.
 Each full window (``window_chunks`` chunks, a power of two) that has more
-data after it goes through the windowed chunk kernel with counter base =
-the window's global chunk index and ``whole=False``, then through
-``tree_reduce(root=False)`` on the device; the host folds window tops with
-the incremental-stack rule (one 64-byte parent compression per merge,
+data after it reduces to its subtree top on the device through
+``blake3_cuda.window_top``: the fused windowed kernel with counter base =
+the window's global chunk index, never ROOT-finalized, and the tree fold,
+both in shared memory. The host folds window tops with the
+incremental-stack rule (one 64-byte parent compression per merge,
 ``blake3_ref.compress``). Memory stays at one window whatever the file
 size. Semantics: upstream core/src/object/validation/hash.rs:10-24.
 
@@ -86,9 +87,8 @@ class StreamingChecksum:
         """Reduce one window to its 8-word subtree-top CV."""
         words, length = self._window_words(data, self._window_chunks)
         base = self._windows_done * self._window_chunks
-        cvs, n = blake3_cuda.chunk_cvs(words, length, counter_base=base, whole=False)
-        top = bb.tree_reduce(cvs, n, root=False)
-        return [int(w) for w in bb.tensor_to_words(top)[0]]
+        top = blake3_cuda.window_top(words, length, base)
+        return [int(w) for w in bb.tensor_to_words(top)]
 
     def _push_window_cv(self, cv: list) -> None:
         self._windows_done += 1

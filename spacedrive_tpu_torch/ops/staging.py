@@ -14,7 +14,7 @@ Empty files get no CAS ID (``None``), matching FileMetadata::new
 Backends:
 - ``"oracle"``: streaming pure-Python BLAKE3 per file (the parity oracle).
 - ``"plain"``: the plain torch version on the CPU.
-- ``"cuda"``: the CUDA chunk kernel and the torch tree stage on the GPU.
+- ``"cuda"``: the fused CUDA chunk + tree kernels on the GPU.
 
 Left out of this slice, each for a reason:
 - The link-probe auto policy (``auto_device_batch``,

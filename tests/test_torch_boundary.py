@@ -94,7 +94,15 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     plain, n_plain = bb.chunk_cvs(words, lengths)
     assert torch.equal(fast, plain) and torch.equal(win, plain)
     assert torch.equal(n_fast, n_plain) and torch.equal(n_win, n_plain)
-    assert blake3_cuda.launches == {blake3_cuda.FAST: 0, blake3_cuda.WINDOWED: 0}
+    digests = blake3_cuda.blake3_words(words, lengths)
+    top = blake3_cuda.window_top(words[:1], lengths[:1], 16)
+    assert torch.equal(digests, bb.tree_reduce(plain, n_plain))
+    assert torch.equal(top, bb.tree_reduce(
+        *bb.chunk_cvs(words[:1], lengths[:1], 16, whole=False), root=False)[0])
+    assert set(blake3_cuda.launches) == {
+        blake3_cuda.FAST, blake3_cuda.WINDOWED, blake3_cuda.FOLD,
+        blake3_cuda.FAST_CVS, blake3_cuda.WINDOWED_CVS}
+    assert all(n == 0 for n in blake3_cuda.launches.values())
 
 
 def test_wrappers_refuse_malformed_inputs():
@@ -105,3 +113,7 @@ def test_wrappers_refuse_malformed_inputs():
         blake3_cuda.chunk_cvs_fast(words, lengths[:1])
     with pytest.raises(ValueError):
         staging.cas_ids_for_files([], backend="auto")
+    with pytest.raises(ValueError):
+        blake3_cuda.window_top(words, lengths, 0)  # two windows
+    with pytest.raises(ValueError):
+        blake3_cuda.window_top(words[:1], lengths[:1], np.array([0, 1], np.uint64))

@@ -1,4 +1,4 @@
-"""The port's CUDA chunk kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card.
 
 Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
 False. This file imports nothing of JAX, so it also runs on a GPU machine
@@ -64,3 +64,40 @@ def test_edge_lengths_match_oracle_on_the_card(cuda):
     digests = blake3_torch.blake3_words(words, lengths, device="cuda")
     hexes = bb.digests_to_hex(blake3_torch.digests_to_numpy(digests))
     assert hexes == [blake3_ref.blake3_hex(m) for m in msgs]
+
+
+@pytest.mark.parametrize("C", [1, 5, 57, 101, 128, 129, 4096])
+def test_fused_blake3_words_matches_plain_tree(cuda, C):
+    B = 3 if C == 4096 else 40
+    w, n = _grid(C, B, C, cuda)
+    cvs, n_chunks = bb.chunk_cvs(w, n)
+    want = bb.tree_reduce(cvs, n_chunks)
+    assert torch.equal(blake3_cuda.blake3_words(w, n), want)
+    for span in (4, 256):  # more folds; one span
+        got = blake3_cuda._fused(w, n, windowed=False, span=span)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), span
+
+
+@pytest.mark.parametrize("counter_base", [16, 2**32 - 3, 2**40 + 7])
+@pytest.mark.parametrize("length", [1, 1024, 5000, 64 * 1024])
+def test_window_top_matches_plain_windowed_tree(cuda, counter_base, length):
+    rng = np.random.default_rng(length)
+    words = rng.integers(0, 2**32, size=(1, 64, 256), dtype=np.uint32)
+    w, n = blake3_torch.words_to_device(words, np.array([length], np.int32), cuda)
+    cvs, n_chunks = bb.chunk_cvs(w, n, counter_base, whole=False)
+    want = bb.tree_reduce(cvs, n_chunks, root=False)[0]
+    assert torch.equal(blake3_cuda.window_top(w, n, counter_base), want)
+    got = blake3_cuda._fused(w, n, windowed=True, counter_base=counter_base, span=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want)
+
+
+def test_launch_error_raises_and_counts_nothing(cuda):
+    # 65536 one-chunk spans exceed the grid's y limit: the launcher refuses.
+    w = torch.zeros((1, 65536, 256), dtype=torch.int32, device=cuda)
+    n = torch.tensor([65536 * 1024], dtype=torch.int32, device=cuda)
+    blake3_cuda.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        blake3_cuda._fused(w, n, windowed=False, span=1)
+    assert all(v == 0 for v in blake3_cuda.launches.values())

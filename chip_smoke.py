@@ -20,17 +20,28 @@ each kernel with CUDA events. Phases:
    launch) and the plain chunk and tree stages;
 3. small grid — B = 2048 rows at C = 101 with edge lengths;
 4. real files — a 16384-file corpus through
-   ``staging.cas_ids_for_files(backend="cuda")`` (the identify main path),
-   against ``backend="plain"``, the oracle, and duplicate grouping;
+   ``staging.cas_ids_for_files(backend="cuda")`` (the identify main path:
+   the native C++ staging plane writes each size class into a pinned page,
+   one non-blocking copy, K1), against ``backend="plain"``, the oracle, and
+   duplicate grouping; an uncounted second run splits its time into native
+   staging, pinned H2D, hash and D2H + format, beside the Python readers
+   and host packing that the plain path still runs;
 5. validate — ``validator.checksums_for_files`` on a small-file page and a
    multi-window streamed file (the validate main path); K2's CV form, K2
    fused and the tree fold per 8 MiB window, counter bases straddling
    2**32, and the dependent latency of one compression;
-6. the kernel table as one JSON line.
+6. ring — ``overlap.run_overlapped`` (the depth-N ring: native staging
+   into pinned pages, H2D on a copy stream, K1 on a compute stream) at
+   depths 1, 3, 3, 1 in turn over phase 4's 12288 large files (6 batches of
+   2048) and a 16384 x 120 000-byte sparse corpus (8 batches of 2048),
+   every digest held against the plain torch K1 on the Python readers' rows,
+   after a staging probe (the C plane at 1-8 threads on one batch, the
+   per-file cost of each system call, the corpus's file system);
+7. the kernel table as one JSON line.
 
-Launch counts are reset just before each main path (phases 4 and 5) and
-read just after; launches made to compare or time a kernel are not
-counted. Every failure raises, so the exit code is 0 only if every phase
+Launch counts are reset just before each main path (phases 4 and 5, and
+each ring run of phase 6) and read just after; launches made to compare
+or time a kernel are not counted. Every failure raises, so the exit code is 0 only if every phase
 passed. The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -74,8 +85,6 @@ ALU_OPS = {"IADD3", "LOP3", "SHF", "PRMT", "ISETP", "SEL", "LEA", "IMNMX",
 # Cycles per second of the sleep kernel queued ahead of a timed run (about
 # the card's max SM clock; a slower clock only lengthens the sleep).
 SLEEP_CYCLES_PER_S = 2.0e9
-# Devices this run uses.
-RUN_DEVICES = 1
 # Slice 1's device time per main-path unit (PERF.md, NVIDIA H100 80GB HBM3
 # at 700 W): chunk kernel + plain torch tree, per identify step and per
 # 8 MiB window.
@@ -391,6 +400,7 @@ def build_identify_corpus(root: Path, n_files: int):
 
 
 def phase_real_files(workdir: Path, counts: dict):
+    """Phase 4. Returns the corpus's readable large files for the ring."""
     from spacedrive_tpu_torch.ops import blake3_batch as bb
     from spacedrive_tpu_torch.ops import blake3_cuda, blake3_torch, cas, staging
     from spacedrive_tpu_torch.ops.hamming import exact_dup_groups
@@ -401,14 +411,22 @@ def phase_real_files(workdir: Path, counts: dict):
     files, planted = build_identify_corpus(root, 16384)
     corpus_s = time.perf_counter() - t0
 
+    # Set-up, outside the measured window: the two pinned staging pages.
+    pool = staging.cas_pool(files)
+    require(pool.pinned and all(page.is_pinned() for page in pool._pages),
+            "identify staging pages are not pinned")
+    n_threads = staging.default_threads()
+
     # The identify main path, counted.
     torch.cuda.synchronize()
     blake3_cuda.reset_launches()
     t0 = time.perf_counter()
-    ids, errors = staging.cas_ids_for_files(files, backend="cuda")
+    ids, errors = staging.cas_ids_for_files(files, backend="cuda", pool=pool)
     identify_s = time.perf_counter() - t0
     counts["identify"] = dict(blake3_cuda.launches)
-    require(counts["identify"][blake3_cuda.FAST] > 0, "identify path launched no K1")
+    require(counts["identify"][blake3_cuda.FAST] == 2,
+            f"identify path launched {counts['identify']}, not one K1 per size class")
+    require(pool.in_use == 0, f"{pool.in_use} identify leases never came back")
 
     t0 = time.perf_counter()
     plain_ids, plain_errors = staging.cas_ids_for_files(files, backend="plain")
@@ -427,31 +445,52 @@ def phase_real_files(workdir: Path, counts: dict):
     found = sorted(sorted(files[keyed[j][0]][0] for j in g) for g in groups.values())
     require(found == planted, f"dup groups {len(found)} != planted {len(planted)}")
 
-    # Where the time goes on this path (a second, uncounted run).
-    t0 = time.perf_counter()
-    large, small, _empty, _err = staging.stage_files(files)
-    stage_s = time.perf_counter() - t0
+    # Where the time goes on this path (a second, uncounted run): native
+    # staging into the pinned page, the non-blocking copy, K1, D2H + format.
+    large_idx, small_idx, _ = staging._classes(files)
     split = {}
-    for name, batch in (("large", large), ("small", small)):
+    for name, idx in (("large", large_idx), ("small", small_idx)):
+        batch = [files[i] for i in idx]
         t0 = time.perf_counter()
-        words, lengths = bb.build_cas_messages(
-            batch.payloads, batch.sizes, batch.payload_lens)
+        staged = staging.stage_batch_native(batch, pool, n_threads=n_threads)
         t1 = time.perf_counter()
-        w, n = blake3_torch.words_to_device(words, lengths, "cuda")
+        require(staged.lease.page.is_pinned(), f"{name} page is not pinned")
+        w, n = blake3_torch.words_to_device(*staged.tensors(), "cuda", non_blocking=True)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        staged.release()
         digests = blake3_torch.blake3_words(w, n, "cuda")
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         bb.digests_to_cas_ids(blake3_torch.digests_to_numpy(digests))
         t4 = time.perf_counter()
-        split[name] = dict(rows=len(batch.indexes), C=int(words.shape[1]),
-                           pack_s=t1 - t0, h2d_s=t2 - t1, hash_s=t3 - t2,
-                           d2h_format_s=t4 - t3)
+        readable = [r for r in range(len(idx)) if r not in staged.errors]
+        require(staged.fallback_files == 0,
+                f"{staged.fallback_files} readable {name} files fell back to Python reads")
+        split[name] = dict(rows=len(idx), C=int(staged.words.shape[1]), readable=len(readable),
+                           native_stage_s=t1 - t0, h2d_s=t2 - t1, pinned=True,
+                           h2d_bytes=int(w.numel() * 4 + n.numel() * 4),
+                           hash_s=t3 - t2, d2h_format_s=t4 - t3,
+                           fallback_files=staged.fallback_files)
+    require(pool.in_use == 0, "split-run leases never came back")
+
+    # The plain path's host work, for comparison: Python readers, packing.
+    t0 = time.perf_counter()
+    large, small, _empty, _err = staging.stage_files(files)
+    python_stage_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for batch in (large, small):
+        bb.build_cas_messages(batch.payloads, batch.sizes, batch.payload_lens)
+    pack_s = time.perf_counter() - t0
     emit("real_files", files=len(files), corpus_build_s=corpus_s,
          identify_s=identify_s, identify_files_per_s=len(files) / identify_s,
          plain_s=plain_s, errors=names, dup_groups=len(found),
-         launches=counts["identify"], stage_s=stage_s, split=split)
+         launches=counts["identify"], n_threads=n_threads,
+         pinned_bytes=pool.pinned_bytes, pin_alloc_s=pool.alloc_s,
+         native_stage_s=sum(v["native_stage_s"] for v in split.values()),
+         split=split, python_stage_s=python_stage_s, pack_s=pack_s)
+    return [(p, size) for p, size in files
+            if size > cas.MINIMUM_FILE_SIZE and Path(p).name != "stale"]
 
 
 def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
@@ -622,6 +661,141 @@ def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
          fold=stats[blake3_cuda.FOLD])
 
 
+def plain_digests(batches) -> list:
+    """The plain version of each ring batch: Python readers, host packing,
+    the plain torch K1 on the card."""
+    from spacedrive_tpu_torch.ops import blake3_batch as bb
+    from spacedrive_tpu_torch.ops import blake3_torch, staging
+
+    out = []
+    for paths, sizes in batches:
+        large, _small, _empty, errors = staging.stage_files(list(zip(paths, sizes.tolist())))
+        require(not errors and len(large.indexes) == len(paths), f"plain staging: {errors}")
+        words, lengths = bb.build_cas_messages(large.payloads, large.sizes)
+        w, n = blake3_torch.words_to_device(words, lengths, "cuda")
+        out.append(blake3_torch.digests_to_numpy(bb.tree_reduce(*bb.chunk_cvs(w, n))))
+    return out
+
+
+def staging_probe(workdir: Path, batch) -> dict:
+    """Where one staged file's time goes on this host: the C plane on one
+    batch at 1, 2, 4 and 8 threads, single-threaded Python timings of the
+    system calls a file costs, and the file system the corpus lives on."""
+    import mmap
+    import os
+    import platform
+
+    from spacedrive_tpu_torch.ops import staging
+
+    paths, sizes = batch
+    files = list(zip(paths, sizes.tolist()))
+    pool = staging.StagePool("cuda", 1, staging_page_bytes(len(files)))
+    staging.stage_batch_native(files, pool).release()  # warm
+    threads = {}
+    for n in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        staging.stage_batch_native(files, pool, n_threads=n).release()
+        threads[n] = time.perf_counter() - t0
+    per_file_us = {}
+    t0 = time.perf_counter()
+    fds = [os.open(p, os.O_RDONLY) for p in paths]
+    per_file_us["open"] = (time.perf_counter() - t0) / len(paths) * 1e6
+    for name, call in (("fstat", lambda fd: os.fstat(fd)),
+                       ("pread_10KiB", lambda fd: os.pread(fd, 10240, 20000)),
+                       ("mmap_munmap", lambda fd: mmap.mmap(fd, 0, prot=mmap.PROT_READ).close())):
+        t0 = time.perf_counter()
+        for fd in fds:
+            call(fd)
+        per_file_us[name] = (time.perf_counter() - t0) / len(fds) * 1e6
+    t0 = time.perf_counter()
+    for fd in fds:
+        os.close(fd)
+    per_file_us["close"] = (time.perf_counter() - t0) / len(fds) * 1e6
+    real = os.path.realpath(workdir)
+    mounts = [ln.split()[:3] for ln in Path("/proc/mounts").read_text().splitlines()]
+    mount = max((m for m in mounts if real == m[1] or real.startswith(m[1].rstrip("/") + "/")),
+                key=lambda m: len(m[1]), default=None)
+    return dict(files=len(paths), stage_s_by_threads=threads, syscall_us=per_file_us,
+                fs=mount, kernel=platform.release(), cores=staging.default_threads())
+
+
+def phase_ring(workdir: Path, large_files: list, counts: dict):
+    from spacedrive_tpu_torch.ops import blake3_cuda, cas, overlap
+
+    B = 2048
+    require(len(large_files) == 12288, f"phase 4 left {len(large_files)} large files")
+    corpora = {"identify_large": [
+        ([p for p, _ in large_files[k:k + B]],
+         np.array([size for _, size in large_files[k:k + B]], np.uint64))
+        for k in range(0, len(large_files), B)]}
+    t0 = time.perf_counter()
+    sparse = overlap.make_sparse_corpus(str(workdir / "ring"), 16384, 120_000, B)
+    rng = np.random.default_rng(7)
+    for paths, _ in sparse:  # distinct bytes per file, so a leaked page shows
+        for p in paths:
+            with open(p, "r+b") as f:
+                for offset, _length in cas.sample_spec(120_000):
+                    f.seek(offset)
+                    f.write(rng.integers(0, 256, 64, dtype=np.uint8).tobytes())
+    corpora["sparse_120k"] = sparse
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = {name: plain_digests(batches) for name, batches in corpora.items()}
+    plain_s = time.perf_counter() - t0
+    emit("ring_setup", batch_files=B, batches={k: len(v) for k, v in corpora.items()},
+         corpus_build_s=corpus_s, plain_s=plain_s)
+    emit("staging_probe", **{name: staging_probe(workdir, batches[1])
+                             for name, batches in corpora.items()})
+
+    for name, batches in corpora.items():
+        # In turns (1, 3, 3, 1): the host's file-system latency drifts
+        # between runs by more than depth changes, so only pairs in one
+        # call, in both orders, compare the depths.
+        for turn, depth in enumerate((1, 3, 3, 1)):
+            torch.cuda.synchronize()
+            blake3_cuda.reset_launches()
+            # Calibrations before and after the run only: a mid-run pause
+            # drains the ring, and 5-7 measured batches leave no room for one.
+            res, stats = overlap.run_overlapped(batches, calibrate_every=len(batches),
+                                                depth=depth, devices=["cuda"])
+            launches = dict(blake3_cuda.launches)
+            counts[f"ring/{name}/depth{depth}/{turn}"] = launches
+            want = len(batches) + len(stats.samples)
+            require(launches[blake3_cuda.FAST] == stats.kernel_batches == want,
+                    f"ring {name} depth {depth}: K1 launches {launches} != {want} batches")
+            require(sum(launches.values()) == launches[blake3_cuda.FAST],
+                    f"ring {name} depth {depth} launched {launches}")
+            for k, got in enumerate(res):
+                require(np.array_equal(got, plain[name][k]),
+                        f"ring {name} depth {depth}: batch {k} digests != plain")
+            require(stats.stage_python_batches == 0 and stats.fallback_files == 0,
+                    f"ring {name} depth {depth}: Python staging ran")
+            require(stats.leases_out == 0, f"ring {name} depth {depth}: leases out")
+            require(stats.pinned_bytes == stats.pool_pages * (
+                staging_page_bytes(B)) > 0, "ring pages are not pinned")
+            emit("ring", corpus=name, depth=depth, turn=turn, batches=len(batches),
+                 batch_files=B,
+                 files_per_s=stats.files_per_sec,
+                 bound_files_per_s=stats.bound_files_per_sec,
+                 bound_report=stats.bound_report(), wall_s=stats.wall_s,
+                 samples_stage_h2d_kernel_s=stats.samples, stage_stall_s=stats.stage_s,
+                 retire_stall_s=stats.retire_stall_s, calibration_s=stats.calibration_s,
+                 h2d_s=stats.h2d_s, h2d_bytes=stats.h2d_bytes,
+                 h2d_gb_per_s=stats.h2d_bytes / stats.h2d_s / 1e9 if stats.h2d_s else None,
+                 depth_high_water=stats.depth_high_water, n_threads=stats.n_threads,
+                 pool_pages=stats.pool_pages, pinned_bytes=stats.pinned_bytes,
+                 pin_alloc_s=stats.pin_alloc_s, launches=launches,
+                 stage_native_batches=stats.stage_native_batches,
+                 stage_python_batches=stats.stage_python_batches)
+
+
+def staging_page_bytes(rows: int) -> int:
+    """Bytes of one ring page: `rows` rows on the C = 57 grid plus lengths."""
+    from spacedrive_tpu_torch.ops import overlap, staging
+
+    return staging.StagePool.bytes_for(rows, overlap.LARGE_STRIDE)
+
+
 REPLACES = {
     "blake3_chunk_fast": "spacedrive_tpu/ops/blake3_pallas.py:121",
     "blake3_chunk_fast_cvs": "spacedrive_tpu/ops/blake3_pallas.py:121",
@@ -656,8 +830,9 @@ def main() -> int:
     (ROOT / "spacedrive_tpu_torch" / "_build").mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(
             prefix="chip-smoke-", dir=ROOT / "spacedrive_tpu_torch" / "_build") as tmp:
-        phase_real_files(Path(tmp), counts)
+        large_files = phase_real_files(Path(tmp), counts)
         phase_validate(Path(tmp), bound, counts, stats)
+        phase_ring(Path(tmp), large_files, counts)
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -681,7 +856,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": RUN_DEVICES}}), flush=True)
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -1,0 +1,135 @@
+"""ctypes bindings to the port's native staging plane (csrc/sdio_stage.cpp).
+
+Port of the staging half of ``spacedrive_tpu/native/__init__.py``: batched
+file reads into dense rows by a pool of C++ threads over pread/mmap, with
+the interpreter lock released for the whole call. ``ops/_build.py`` builds
+the library with ``g++`` at first use; if it cannot, the call raises. There
+is no ``available()`` gate: no caller is rerouted to another plane.
+
+Every entry point takes ``n_threads``, the C plane's worker threads for
+this call (callers that stage several batches at once split the host's
+cores between them).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Sequence, Tuple
+
+import numpy as np
+
+from .ops import _build, cas
+
+# Status codes: must match `enum Status` in csrc/sdio_stage.cpp.
+OK = 0
+ERR_OPEN = -1
+ERR_SHORT_READ = -2
+ERR_GREW = -3
+ERR_EMPTY = -4
+ERR_IO = -5
+
+STATUS_MESSAGES = {
+    ERR_OPEN: "cannot open file",
+    ERR_SHORT_READ: "short read",
+    ERR_GREW: "file grew past its declared size class",
+    ERR_EMPTY: "empty file",
+    ERR_IO: "I/O error",
+}
+
+# The constants baked into csrc/sdio_stage.cpp.
+LARGE_PAYLOAD = cas.LARGE_PAYLOAD_SIZE  # 57344
+SMALL_CAP = cas.MINIMUM_FILE_SIZE  # 102400
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.library("sdio_stage")
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _paths_array(paths: Sequence[str]):
+    arr = (ctypes.c_char_p * len(paths))()
+    arr[:] = [os.fsencode(p) for p in paths]
+    return arr
+
+
+def _threads(n_threads: int) -> int:
+    if int(n_threads) < 1:
+        raise ValueError(f"n_threads must be >= 1, got {n_threads}")
+    return int(n_threads)
+
+
+def stage_large(paths: Sequence[str], sizes: np.ndarray, *,
+                n_threads: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Sampled reads → ([n, 57344] uint8 payloads, [n] int32 status)."""
+    lib = _lib()
+    n = len(paths)
+    sizes = np.ascontiguousarray(sizes, dtype=np.uint64)
+    if sizes.shape != (n,):
+        raise ValueError(f"sizes must be [{n}], got {sizes.shape}")
+    out = np.zeros((n, LARGE_PAYLOAD), dtype=np.uint8)
+    status = np.zeros(n, dtype=np.int32)
+    if n:
+        lib.sd_stage_large(n, _paths_array(paths), _ptr(sizes, ctypes.c_uint64),
+                           _ptr(out, ctypes.c_uint8), _ptr(status, ctypes.c_int32),
+                           _threads(n_threads))
+    return out, status
+
+
+def stage_small(paths: Sequence[str], cap: int = SMALL_CAP, *,
+                n_threads: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Whole-file reads → ([n, cap+1] payloads, [n] lens, [n] status).
+
+    The extra column lets the C plane detect files that grew past the size
+    class (ERR_GREW); callers slice [:, :cap].
+    """
+    lib = _lib()
+    n = len(paths)
+    out = np.zeros((n, cap + 1), dtype=np.uint8)
+    lens = np.zeros(n, dtype=np.int32)
+    status = np.zeros(n, dtype=np.int32)
+    if n:
+        lib.sd_stage_small(n, _paths_array(paths), cap, _ptr(out, ctypes.c_uint8),
+                           _ptr(lens, ctypes.c_int32), _ptr(status, ctypes.c_int32),
+                           _threads(n_threads))
+    return out, lens, status
+
+
+def stage_batch(paths: Sequence[str], sizes: np.ndarray, out: np.ndarray,
+                payload_cap: int, *, n_threads: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Packed staging into a caller-owned [>= n, stride] uint8 page: row i
+    becomes le64(size) ‖ payload ‖ zeros, ``build_cas_messages``' layout.
+
+    `out` must be C-contiguous with a stride that is a multiple of 1024 and
+    holds 8 + payload_cap + 1 bytes (the last for the grew-detection byte
+    of small rows). Returns ([n] int32 message lengths, the kernel's
+    `lengths` operand, and [n] int32 status); non-OK rows are scrubbed to
+    their 8-byte prefix.
+    """
+    lib = _lib()
+    n = len(paths)
+    if out.ndim != 2 or out.dtype != np.uint8 or out.shape[0] < n or \
+            not out.flags.c_contiguous:
+        # A mis-shaped page would let the C writer scribble past it.
+        raise ValueError(
+            f"stage_batch: out must be C-contiguous uint8 [>= {n}, stride], "
+            f"got {out.dtype} {out.shape}")
+    stride = int(out.shape[1])
+    if stride < 8 + int(payload_cap) + 1 or stride % 1024:
+        raise ValueError(
+            f"stage_batch: stride {stride} cannot hold the {payload_cap}-byte "
+            "payload class (+ prefix and grew byte) on the chunk grid")
+    sizes = np.ascontiguousarray(sizes, dtype=np.uint64)
+    if sizes.shape != (n,):
+        raise ValueError(f"sizes must be [{n}], got {sizes.shape}")
+    msg_lens = np.zeros(n, dtype=np.int32)
+    status = np.zeros(n, dtype=np.int32)
+    if n:
+        lib.sd_stage_batch(n, _paths_array(paths), _ptr(sizes, ctypes.c_uint64),
+                           _ptr(out, ctypes.c_uint8), stride, payload_cap,
+                           _ptr(msg_lens, ctypes.c_int32),
+                           _ptr(status, ctypes.c_int32), _threads(n_threads))
+    return msg_lens, status

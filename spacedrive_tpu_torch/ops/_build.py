@@ -1,19 +1,29 @@
-"""Build the port's CUDA sources with nvcc at first use and load them.
+"""Build the port's native sources at first use and load them.
 
-Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
-by ``nvcc`` for ``sm_90a`` into a shared library, loaded with ``ctypes``.
+Each source in ``csrc/`` has a plain C interface and is compiled on its own
+into a shared library, loaded with ``ctypes``:
+
+- ``csrc/<name>.cu`` by ``nvcc`` for ``sm_90a`` (the CUDA kernels);
+- ``csrc/<name>.cpp`` by ``g++`` (host code: the native staging plane).
+
 The library's name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. Libraries
-and the compiler's output (``-Xptxas -v``: registers, spills) land in
+edited source is rebuilt and a stale library is never loaded. The flags
+name no host CPU (no ``-march=native``), so a library built on one host is
+right on any other. Builds write a temporary file and ``os.replace`` it
+into place under a per-source file lock, so concurrent processes (xdist
+workers) neither race nor load a half-written library. Libraries and the
+compiler's output (``-Xptxas -v``: registers, spills) land in
 ``spacedrive_tpu_torch/_build/``, which git ignores.
 
 Nothing here runs at import: the CPU tests import every module, and only
-the first launch of a kernel needs ``nvcc``.
+the first call into a library needs its compiler. A missing compiler
+raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -30,6 +40,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
+             "-Wall", "-Wextra")
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_u64p = ctypes.POINTER(ctypes.c_uint64)
+_charpp = ctypes.POINTER(ctypes.c_char_p)
 
 # name → (argtypes, restype) of each exported C function, per source.
 _SIGNATURES = {
@@ -46,6 +63,16 @@ _SIGNATURES = {
              ctypes.c_void_p, ctypes.c_void_p],
             ctypes.c_int),
         "sd_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "sdio_stage": {
+        "sd_stage_large": (
+            [ctypes.c_int64, _charpp, _u64p, _u8p, _i32p, ctypes.c_int], None),
+        "sd_stage_small": (
+            [ctypes.c_int64, _charpp, ctypes.c_uint64, _u8p, _i32p, _i32p,
+             ctypes.c_int], None),
+        "sd_stage_batch": (
+            [ctypes.c_int64, _charpp, _u64p, _u8p, ctypes.c_int64,
+             ctypes.c_uint64, _i32p, _i32p, ctypes.c_int], None),
     },
 }
 
@@ -65,37 +92,63 @@ def nvcc() -> str:
     return found
 
 
+def gxx() -> str:
+    """Path of the host C++ compiler: $CXX, else the first g++ on PATH."""
+    found = shutil.which(os.environ.get("CXX") or "g++")
+    if found is None:
+        raise RuntimeError("g++ not found: set CXX to a C++17 compiler")
+    return found
+
+
+def _source(name: str) -> Path:
+    for ext in (".cu", ".cpp"):
+        if (CSRC_DIR / f"{name}{ext}").is_file():
+            return CSRC_DIR / f"{name}{ext}"
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
+def _command(src: Path, out: Path) -> list:
+    if src.suffix == ".cu":
+        return [nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [gxx(), *GXX_FLAGS, "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
-    """Where the library of csrc/<name>.cu lives for the current source."""
-    src = CSRC_DIR / f"{name}.cu"
+    """Where the library of csrc/<name>.{cu,cpp} lives for the current source."""
+    src = _source(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def compile_source(name: str) -> Path:
-    """Compile csrc/<name>.cu unless its current library exists; returns
-    the library path. The compiler's output goes to <library>.log."""
+    """Compile csrc/<name> unless its current library exists; returns the
+    library path. The compiler's output goes to <library>.log."""
     out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-        capture_output=True, text=True, check=False)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stderr[-4000:]}")
-    tmp.rename(out)
+    with open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if out.exists():  # another process built it while this one waited
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        src = _source(name)
+        proc = subprocess.run(_command(src, tmp), capture_output=True,
+                              text=True, check=False)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"compiling csrc/{src.name} failed (exit {proc.returncode}):\n"
+                f"{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
     return out
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, compiled on first use."""
+    """The loaded library of csrc/<name>, compiled on first use."""
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:

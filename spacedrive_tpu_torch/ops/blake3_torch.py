@@ -11,10 +11,11 @@ Every entry point takes an explicit ``device`` and defaults to ``"cuda"``;
 the CPU runs only when the caller passes ``device="cpu"`` (the tests do).
 Asking for CUDA where there is none raises: nothing falls back to the CPU.
 
-``words_to_device`` is where state crosses from the JAX package: its
-staged message grid (``build_cas_messages`` / ``pack_messages`` output, a
-``[B, C, 256]`` uint32 array plus ``[B]`` int32 lengths) becomes the
-port's int32 tensors, so one numpy batch can feed both packages.
+``words_to_device`` is where a staged grid crosses to the device: a numpy
+batch (``build_cas_messages`` / ``pack_messages`` output, a ``[B, C, 256]``
+uint32 array plus ``[B]`` int32 lengths, the same arrays the JAX package
+stages), or the pinned views of a native staging page, copied without
+blocking on a caller's stream.
 ``digests_to_numpy`` turns ``[B, 8]`` digests back into uint32.
 
 Left out of this module, each for a reason:
@@ -23,8 +24,9 @@ Left out of this module, each for a reason:
   recompiles. PyTorch runs eagerly and the kernels take any B.
 - The mesh-sharded hasher (``make_sharded_blake3`` / ``sharded_hasher``)
   is multi-device and waits for a later slice.
-- The donated entries (``_blake3_best_donated`` / ``_donated_local``) wait
-  for a later slice, with the depth-N ring that recycles staged buffers.
+- The donated entries (``_blake3_best_donated`` / ``_donated_local``) have
+  no counterpart: the depth-N ring (``ops/overlap.py``) recycles staged
+  device buffers through the caching allocator and ``record_stream``.
 """
 
 from __future__ import annotations
@@ -55,18 +57,41 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def words_to_device(words, lengths, device="cuda"):
-    """Staged grid (numpy uint32 [B, C, 256], int32 [B]) → the port's
-    (int32 words, int32 lengths) tensors on `device`."""
+def words_to_device(words, lengths, device="cuda", *, stream=None,
+                    non_blocking: bool = False):
+    """Staged grid → the port's (int32 words, int32 lengths) on `device`.
+
+    `words` / `lengths` are numpy (uint32 [B, C, 256], int32 [B]) or the
+    port's int32 tensors on the host, such as the views of a staging page
+    (``staging.NativeStaged.tensors``). With `non_blocking` the copy to a
+    CUDA device is issued on `stream` (default: the current stream) and
+    returns before it completes; the source must then be pinned and must
+    not be rewritten before the copy has completed (an event recorded on
+    `stream` after this call says when). A non-blocking copy from pageable
+    memory would silently run synchronously, so it raises instead.
+    """
     dev = resolve_device(device)
-    words = np.asarray(words)
-    if words.ndim != 3 or words.shape[2] != bb.WORDS_PER_CHUNK:
+    if isinstance(words, torch.Tensor):
+        w, n = words, lengths
+        if w.dtype != torch.int32 or n.dtype != torch.int32:
+            raise ValueError("words and lengths tensors must be int32")
+    else:
+        w = bb.words_to_tensor(np.asarray(words), "cpu")
+        n = torch.from_numpy(np.ascontiguousarray(lengths, dtype=np.int32))
+    if w.dim() != 3 or w.shape[2] != bb.WORDS_PER_CHUNK:
         raise ValueError(f"words must be [B, C, {bb.WORDS_PER_CHUNK}], "
-                         f"got {words.shape}")
-    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
-    if lengths.shape != (words.shape[0],):
-        raise ValueError(f"lengths must be [{words.shape[0]}], got {lengths.shape}")
-    return bb.words_to_tensor(words, dev), torch.from_numpy(lengths).to(dev)
+                         f"got {tuple(w.shape)}")
+    if tuple(n.shape) != (w.shape[0],):
+        raise ValueError(f"lengths must be [{w.shape[0]}], got {tuple(n.shape)}")
+    if dev.type != "cuda":
+        return w.to(dev), n.to(dev)
+    if non_blocking and not (w.is_pinned() and n.is_pinned()):
+        raise ValueError("a non_blocking host-to-device copy needs a pinned "
+                         "source; pageable memory would copy synchronously")
+    with torch.cuda.stream(stream if stream is not None
+                           else torch.cuda.current_stream(dev)):
+        return (w.to(dev, non_blocking=non_blocking),
+                n.to(dev, non_blocking=non_blocking))
 
 
 def digests_to_numpy(digests: torch.Tensor) -> np.ndarray:

@@ -2,13 +2,15 @@
 
 - Nothing under ``spacedrive_tpu_torch/`` nor ``chip_smoke.py`` imports
   ``jax``, ``jaxlib`` or the JAX package ``spacedrive_tpu`` (the port keeps
-  its own copies of the framework-free modules).
+  its own copies of the framework-free modules), and no C++ or CUDA source
+  of the port includes a file outside ``spacedrive_tpu_torch/csrc/``.
 - Asking an entry point for CUDA where there is none raises instead of
   running on the CPU, and a kernel wrapper given a CPU tensor takes the
   plain version without counting a launch.
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -17,11 +19,14 @@ import torch
 
 from spacedrive_tpu_torch.objects import validator
 from spacedrive_tpu_torch.ops import blake3_batch as bb
-from spacedrive_tpu_torch.ops import blake3_cuda, blake3_torch, seqhash, staging
+from spacedrive_tpu_torch.ops import blake3_cuda, blake3_torch, overlap, seqhash, staging
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "spacedrive_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "spacedrive_tpu"}
+CSRC = ROOT / "spacedrive_tpu_torch" / "csrc"
+NATIVE_SOURCES = sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".cpp", ".h"))
+INCLUDE = re.compile(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', re.M)
 
 
 @pytest.fixture(autouse=True)
@@ -65,6 +70,35 @@ def test_forbidden_import_detector_catches_every_spelling():
     assert found == FORBIDDEN
 
 
+def test_scan_covers_the_staging_plane_and_the_ring():
+    port = ROOT / "spacedrive_tpu_torch"
+    assert {port / "native.py", port / "ops" / "overlap.py",
+            port / "ops" / "staging.py"} <= set(PORT_FILES)
+    assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp"}
+
+
+def _foreign_includes(path: Path, text: str):
+    """Includes that name a file outside the source's own directory: a
+    path into the JAX package's trees, a parent directory, or a quoted
+    include that csrc/ does not hold."""
+    for kind, name in INCLUDE.findall(text):
+        if name.startswith(("native/", "spacedrive_tpu/", "/")) or ".." in name \
+                or (kind == '"' and not (path.parent / name).is_file()):
+            yield name
+
+
+@pytest.mark.parametrize("path", NATIVE_SOURCES, ids=lambda p: p.name)
+def test_native_sources_include_nothing_outside_csrc(path):
+    assert list(_foreign_includes(path, path.read_text())) == []
+
+
+def test_include_detector_catches_every_spelling():
+    src = ('#include "../../native/sdio.cpp"\n#include <spacedrive_tpu/x.h>\n'
+           '#  include "native/sdio.cpp"\n#include "missing.h"\n#include <cstdint>\n')
+    assert list(_foreign_includes(CSRC / "x.cpp", src)) == [
+        "../../native/sdio.cpp", "spacedrive_tpu/x.h", "native/sdio.cpp", "missing.h"]
+
+
 def _grid():
     words = np.zeros((2, 1, 256), np.uint32)
     return words, np.array([0, 5], np.int32)
@@ -78,8 +112,15 @@ def _grid():
     lambda: staging.cas_ids_for_files([("/nonexistent", 3)], backend="cuda"),
     lambda: validator.checksums_for_files(["/nonexistent"]),
     lambda: seqhash.StreamingChecksum(),
+    lambda: staging.stage_batch_native([("/nonexistent", 200_000)],
+                                       staging.StagePool("cuda", 1, 1 << 20)),
+    lambda: staging.cas_pool([("/nonexistent", 5)]),
+    lambda: overlap.run_overlapped([(["/nonexistent"], np.array([200_000], np.uint64))],
+                                   depth=1, devices=["cuda"]),
+    lambda: blake3_torch.words_to_device(*_grid(), device="cuda", non_blocking=True),
 ], ids=["blake3_words", "words_to_device", "cas_ids", "checksums",
-        "cas_ids_for_files", "validator", "streaming"])
+        "cas_ids_for_files", "validator", "streaming", "stage_batch_native",
+        "cas_pool", "run_overlapped", "words_to_device_non_blocking"])
 def test_cuda_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

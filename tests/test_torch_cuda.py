@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from spacedrive_tpu_torch.ops import blake3_batch as bb
-from spacedrive_tpu_torch.ops import blake3_cuda, blake3_ref, blake3_torch
+from spacedrive_tpu_torch.ops import blake3_cuda, blake3_ref, blake3_torch, overlap, staging
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +101,66 @@ def test_launch_error_raises_and_counts_nothing(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         blake3_cuda._fused(w, n, windowed=False, span=1)
     assert all(v == 0 for v in blake3_cuda.launches.values())
+
+
+def _marked_corpus(root, n_files, batch):
+    """Sparse large files, each with its own bytes at a sampled offset."""
+    batches = overlap.make_sparse_corpus(str(root), n_files, 120_000, batch)
+    rng = np.random.default_rng(n_files)
+    for paths, _ in batches:
+        for p in paths:
+            with open(p, "r+b") as f:
+                f.seek(40_000)
+                f.write(rng.integers(0, 256, 64, dtype=np.uint8).tobytes())
+    return batches
+
+
+def _plain_digests(paths, sizes):
+    """Python readers + build_cas_messages + the plain torch K1, on the CPU."""
+    large, _small, _empty, errors = staging.stage_files(list(zip(paths, sizes.tolist())))
+    assert not errors
+    words, lengths = bb.build_cas_messages(large.payloads, large.sizes)
+    w, n = blake3_torch.words_to_device(words, lengths, "cpu")
+    return blake3_torch.digests_to_numpy(bb.tree_reduce(*bb.chunk_cvs(w, n)))
+
+
+def test_pinned_ring_matches_plain(cuda, tmp_path):
+    batches = _marked_corpus(tmp_path, 5 * 64, 64)
+    blake3_cuda.reset_launches()
+    res, stats = overlap.run_overlapped(batches, depth=3, devices=["cuda"],
+                                        calibrate_every=2)
+    assert blake3_cuda.launches[blake3_cuda.FAST] == stats.kernel_batches \
+        == len(batches) + len(stats.samples)
+    assert stats.leases_out == 0 and stats.pinned_bytes > 0
+    assert stats.stage_python_batches == 0 and stats.fallback_files == 0
+    for k, (paths, sizes) in enumerate(batches):
+        assert np.array_equal(res[k], _plain_digests(paths, sizes)), k
+
+
+def test_identify_path_on_pinned_pages_matches_plain(cuda, tmp_path):
+    rng = np.random.default_rng(3)
+    files = []
+    for i, n in enumerate((1, 1023, 102_400, 102_401, 3_000_000, 0)):
+        p = tmp_path / f"f{i}"
+        p.write_bytes(rng.integers(0, 256, n, dtype=np.uint8).tobytes())
+        files.append((str(p), n))
+    files.append((str(tmp_path / "missing"), 4096))
+    pool = staging.cas_pool(files)
+    assert pool.pinned and all(page.is_pinned() for page in pool._pages)
+    blake3_cuda.reset_launches()
+    ids, errors = staging.cas_ids_for_files(files, "cuda", pool=pool)
+    assert blake3_cuda.launches[blake3_cuda.FAST] == 2  # one per size class
+    plain_ids, plain_errors = staging.cas_ids_for_files(files, "plain")
+    assert ids == plain_ids and set(errors) == set(plain_errors) == {len(files) - 1}
+    assert pool.in_use == 0
+
+
+def test_non_blocking_copy_needs_a_pinned_source(cuda):
+    words = torch.zeros((1, 1, 256), dtype=torch.int32)
+    lengths = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="pinned"):
+        blake3_torch.words_to_device(words, lengths, cuda, non_blocking=True)
+    w, n = blake3_torch.words_to_device(words.pin_memory(), lengths.pin_memory(), cuda,
+                                        non_blocking=True)
+    torch.cuda.synchronize()
+    assert w.is_cuda and torch.equal(w.cpu(), words) and torch.equal(n.cpu(), lengths)

@@ -37,17 +37,34 @@ each kernel with CUDA events. Phases:
    every digest held against the plain torch K1 on the Python readers' rows,
    after a staging probe (the C plane at 1-8 threads on one batch, the
    per-file cost of each system call, the corpus's file system);
-7. the kernel table as one JSON line.
+7. scan — a 100 000-file location through the port's own job system:
+   phase 4's directory plus ~83 600 sparse 120 000-byte files (1000 to a
+   sub-directory, each with its own bytes at offset 0, two planted pairs),
+   ``create_location`` and ``scan_location(backend="cuda")`` in a fresh
+   library whose SQLite files sit in the system temp dir. IndexerJob walks
+   and saves the rows, FileIdentifierJob hashes 16384-file steps with K1
+   out of one pinned two-page pool and links or creates objects. Every CAS
+   ID is held against an independent ``cas_ids_for_files(backend="cuda")``
+   call, phase 4's IDs, and a 1024-row sample against the plain version;
+   object grouping, op-log counts, the launches (one K1 per size class per
+   step) and the pool's leases are checked;
+8. validate job — phase 5's directory as a second location, scanned, then
+   ``ObjectValidatorJob`` in ``fill`` mode (every checksum equal to phase
+   5's, K1 per page, 9 K2 windows and 9 folds for the 64 MiB file) and in
+   ``verify`` mode (no mismatch);
+9. the kernel table as one JSON line, launches summed over phases 4-8.
 
-Launch counts are reset just before each main path (phases 4 and 5, and
-each ring run of phase 6) and read just after; launches made to compare
-or time a kernel are not counted. Every failure raises, so the exit code is 0 only if every phase
+Launch counts are reset just before each main path (phases 4 and 5, each
+ring run of phase 6, the scans of phases 7 and 8 and each validator job)
+and read just after; launches made to compare or time a kernel are not
+counted. Every failure raises, so the exit code is 0 only if every phase
 passed. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import re
 import subprocess
@@ -489,8 +506,9 @@ def phase_real_files(workdir: Path, counts: dict):
          pinned_bytes=pool.pinned_bytes, pin_alloc_s=pool.alloc_s,
          native_stage_s=sum(v["native_stage_s"] for v in split.values()),
          split=split, python_stage_s=python_stage_s, pack_s=pack_s)
-    return [(p, size) for p, size in files
-            if size > cas.MINIMUM_FILE_SIZE and Path(p).name != "stale"]
+    large_files = [(p, size) for p, size in files
+                   if size > cas.MINIMUM_FILE_SIZE and Path(p).name != "stale"]
+    return large_files, {files[i][0]: cid for i, cid in ids.items()}, planted
 
 
 def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
@@ -583,8 +601,8 @@ def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
     # A ~3 MiB file in 256 KiB windows (two spans and a fold each) against the oracle.
     mid = root / "mid"
     mid.write_bytes(rng.integers(0, 256, 3 * 2**20 + 777, dtype=np.uint8).tobytes())
-    require(seqhash.file_checksum_streaming(mid, "cuda", 256) == cas.file_checksum(mid),
-            "3 MiB streamed file != oracle")
+    mid_sum = seqhash.file_checksum_streaming(mid, "cuda", 256)
+    require(mid_sum == cas.file_checksum(mid), "3 MiB streamed file != oracle")
 
     # One full 8 MiB window at the validator's shape, device inputs prepared:
     # K2 CV, K2 fused (span tops), the fold, and window_top.
@@ -659,6 +677,9 @@ def phase_validate(workdir: Path, bound: Bound, counts: dict, stats: dict):
          latency_floor_ms=floor_ms, latency_floor_depth=depth,
          cv=stats[blake3_cuda.WINDOWED_CVS], fused=stats[blake3_cuda.WINDOWED],
          fold=stats[blake3_cuda.FOLD])
+    # Every file of the directory with its checksum, each held against plain
+    # or the oracle above: what phase 8's validator job must write.
+    return {**{p: sums[i] for i, p in enumerate(paths)}, str(mid): mid_sum}
 
 
 def plain_digests(batches) -> list:
@@ -796,6 +817,316 @@ def staging_page_bytes(rows: int) -> int:
     return staging.StagePool.bytes_for(rows, overlap.LARGE_STRIDE)
 
 
+SCAN_FILES = 100_000       # BASELINE.json config 3's library size
+SCAN_FILE_BYTES = 120_000
+SCAN_DIR_FILES = 1000
+
+
+def extend_scan_corpus(root: Path, n_more: int) -> list:
+    """`n_more` sparse SCAN_FILE_BYTES-byte files, SCAN_DIR_FILES to a
+    sub-directory of `root`, each truncate-created with its index written at
+    offset 0 (inside the CAS header sample, so every file has its own CAS
+    ID), except two planted pairs whose second file carries the first's
+    index. Returns the planted pairs."""
+    import concurrent.futures
+    import os
+
+    twin = {1: 0, 3: 2}
+
+    def make_dir(d: int) -> None:
+        dpath = root / f"scan-{d:03d}"
+        dpath.mkdir()
+        for i in range(d * SCAN_DIR_FILES, min((d + 1) * SCAN_DIR_FILES, n_more)):
+            fd = os.open(dpath / f"f{i:06d}", os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+            try:
+                os.ftruncate(fd, SCAN_FILE_BYTES)
+                os.pwrite(fd, f"scan file {twin.get(i, i):08d}".encode(), 0)
+            finally:
+                os.close(fd)
+
+    n_dirs = -(-n_more // SCAN_DIR_FILES)
+    with concurrent.futures.ThreadPoolExecutor(16) as ex:
+        list(ex.map(make_dir, range(n_dirs)))
+    return [sorted(str(root / "scan-000" / f"f{i:06d}") for i in pair)
+            for pair in ((0, 1), (2, 3))]
+
+
+def _rel_path(root: str, r) -> str:
+    ext = f".{r['extension']}" if r["extension"] else ""
+    return f"{root}/{r['materialized_path'][1:]}{r['name']}{ext}"
+
+
+def run_scan(lib, location_id: int, counts: dict, key: str, events: list) -> float:
+    """scan_location(backend="cuda") + wait_idle on a fresh JobManager, the
+    launch counts reset just before and read just after. Returns wall s."""
+    import asyncio
+
+    from spacedrive_tpu_torch.jobs.manager import JobManager
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    async def main():
+        jobs = JobManager(on_event=lambda e: events.append((time.perf_counter(), e))
+                          if e["type"] == "JobUpdate" else None)
+        await locations.scan_location(jobs, lib, location_id, backend="cuda")
+        await jobs.wait_idle()
+
+    torch.cuda.synchronize()
+    blake3_cuda.reset_launches()
+    t0 = time.perf_counter()
+    asyncio.run(main())
+    wall = time.perf_counter() - t0
+    counts[key] = dict(blake3_cuda.launches)
+    return wall
+
+
+@contextlib.contextmanager
+def device_spans(module, name: str, spans: list):
+    """While open, each call of ``module.name`` is bracketed by a CUDA event
+    pair on the caller's current stream, appended to `spans`: the device
+    time of the work that call queued. The bracket counts no launch."""
+    fn = getattr(module, name)
+
+    def bracketed(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    setattr(module, name, bracketed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def spans_s(spans: list) -> float:
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in spans) / 1e3
+
+
+def job_reports(lib) -> list:
+    from spacedrive_tpu_torch.jobs.report import JobReport
+
+    return [JobReport.from_row(r) for r in lib.db.query("SELECT * FROM job ORDER BY rowid")]
+
+
+def phase_scan(workdir: Path, data_dir: str, phase4_ids: dict, phase4_planted: list,
+               counts: dict):
+    """Phase 7: a SCAN_FILES-file location through the port's job system."""
+    import os
+
+    from spacedrive_tpu_torch.jobs.report import JobStatus
+    from spacedrive_tpu_torch.library import Libraries
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.objects.identifier import AUTO_DEVICE_BATCH
+    from spacedrive_tpu_torch.ops import blake3_cuda, blake3_torch, cas, staging
+    from spacedrive_tpu_torch.sync import opblob
+
+    root = workdir / "identify"
+    on_disk = sum(len(fs) for _, _, fs in os.walk(root))
+    t0 = time.perf_counter()
+    planted = phase4_planted + extend_scan_corpus(root, SCAN_FILES - on_disk)
+    corpus_s = time.perf_counter() - t0
+    regular = sorted(os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs)
+    require(len(regular) == SCAN_FILES, f"{len(regular)} files on disk, not {SCAN_FILES}")
+
+    lib = Libraries(data_dir).create("chip-smoke-scan")
+    location_id = locations.create_location(lib, str(root))
+    events: list = []
+    t_start = time.perf_counter()
+    # K1's and the pinned copies' share of the wall: device time between
+    # event pairs around each call on the job's stream.
+    k1_spans: list = []
+    copy_spans: list = []
+    with device_spans(blake3_cuda, "blake3_words", k1_spans), \
+            device_spans(blake3_torch, "words_to_device", copy_spans):
+        wall = run_scan(lib, location_id, counts, "scan", events)
+    k1_s, copy_s = spans_s(k1_spans), spans_s(copy_spans)
+    launches = counts["scan"]
+    db = lib.db
+
+    reports = {rep.name: rep for rep in job_reports(lib)}
+    require(set(reports) == {"indexer", "file_identifier"}, f"jobs {sorted(reports)}")
+    for name, rep in reports.items():
+        require(rep.status == JobStatus.COMPLETED,
+                f"{name} ended {rep.status.name}: {rep.errors_text[:2]}")
+    rows = db.query("SELECT id, materialized_path, name, extension, size_in_bytes_bytes, "
+                    "cas_id, object_id FROM file_path WHERE is_dir = 0 ORDER BY id")
+    path_of = {r["id"]: _rel_path(str(root), r) for r in rows}
+    require(sorted(path_of.values()) == regular, "file_path rows != regular files on disk")
+    sizes = {r["id"]: int.from_bytes(r["size_in_bytes_bytes"], "big") for r in rows}
+    require(all(sizes[r["id"]] == os.path.getsize(path_of[r["id"]]) for r in rows[::97]),
+            "row sizes != stat sizes")
+
+    # Steps: consecutive pages of AUTO_DEVICE_BATCH orphans in id order; one
+    # K1 launch per size class with rows in a page, none for K2 or the fold.
+    steps = [rows[k:k + AUTO_DEVICE_BATCH] for k in range(0, len(rows), AUTO_DEVICE_BATCH)]
+    classes = sum(any(sizes[r["id"]] > cas.MINIMUM_FILE_SIZE for r in page)
+                  + any(0 < sizes[r["id"]] <= cas.MINIMUM_FILE_SIZE for r in page)
+                  for page in steps)
+    require(launches[blake3_cuda.FAST] == classes,
+            f"scan launched {launches}, not one K1 per size class per step ({classes})")
+    require(launches[blake3_cuda.WINDOWED] == launches[blake3_cuda.FOLD] == 0,
+            f"scan launched K2 or the fold: {launches}")
+    require(len(k1_spans) == len(copy_spans) == classes,
+            f"{len(k1_spans)} K1 / {len(copy_spans)} copy spans, not {classes}")
+    ident = reports["file_identifier"].metadata
+    require(ident["chunk_size"] == AUTO_DEVICE_BATCH,
+            f"identifier stepped at {ident.get('chunk_size')} files")
+    require(ident["pool"]["in_use_after_hash"] == ident["pool"]["in_use_at_end"] == 0,
+            f"staging leases out: {ident['pool']}")
+
+    # CAS IDs: an independent cuda call over the same (path, size) list, in
+    # steps of the same size on one pool, outside the job.
+    files = [(path_of[r["id"]], sizes[r["id"]]) for r in rows]
+    pool = staging.cas_pool(AUTO_DEVICE_BATCH)
+    t0 = time.perf_counter()
+    independent = {}
+    for k in range(0, len(files), AUTO_DEVICE_BATCH):
+        ids, errors = staging.cas_ids_for_files(files[k:k + AUTO_DEVICE_BATCH], "cuda",
+                                                pool=pool)
+        require(not errors, f"independent cuda call errors {list(errors.values())[:2]}")
+        independent.update({k + i: cid for i, cid in ids.items()})
+    independent_s = time.perf_counter() - t0
+    require(pool.in_use == 0, "independent call leases out")
+    got = [r["cas_id"] for r in rows]
+    require(got == [independent[i] for i in range(len(rows))],
+            "scan CAS IDs != the independent cuda call")
+    by_path = dict(zip((f[0] for f in files), got))
+    require(all(by_path.get(p, "absent") == cid for p, cid in phase4_ids.items()),
+            "scan CAS IDs != phase 4's on phase 4's files")
+
+    # A sample of 1024 rows drawn from every step against the plain version.
+    rng = np.random.default_rng(8)
+    sample = sorted(int(k + j) for k in range(0, len(rows), AUTO_DEVICE_BATCH)
+                    for j in rng.choice(min(AUTO_DEVICE_BATCH, len(rows) - k),
+                                        1024 // len(steps) + 1, replace=False))[:1024]
+    t0 = time.perf_counter()
+    plain, plain_errors = staging.cas_ids_for_files([files[i] for i in sample], "plain")
+    plain_s = time.perf_counter() - t0
+    require(not plain_errors and all(plain[j] == got[i] for j, i in enumerate(sample)),
+            "scan CAS IDs != plain on the sample")
+
+    empty = [r for r in rows if sizes[r["id"]] == 0]
+    require(empty and all(r["cas_id"] is None and r["object_id"] is not None for r in empty),
+            "empty files: a CAS ID or no object")
+    n_objects = db.query_one("SELECT COUNT(*) AS n FROM object")["n"]
+    distinct = len({c for c in got if c is not None})
+    require(n_objects == distinct + len(empty),
+            f"{n_objects} objects != {distinct} distinct CAS IDs + {len(empty)} empty")
+    object_of = {path_of[r["id"]]: r["object_id"] for r in rows}
+    for group in planted:
+        require(len({object_of[p] for p in group}) == 1, f"planted group split: {group}")
+    n_row_ops = db.query_one("SELECT COUNT(*) AS n FROM shared_operation")["n"]
+    n_blob_ops = db.query_one("SELECT COALESCE(SUM(n_ops), 0) AS n FROM shared_op_blob")["n"]
+    n_paths = db.query_one("SELECT COUNT(*) AS n FROM file_path")["n"]
+    require(n_row_ops + n_blob_ops >= n_paths + n_objects,
+            f"shared ops {n_row_ops} + {n_blob_ops} < paths {n_paths} + objects {n_objects}")
+    blob = db.query_one("SELECT data, n_ops FROM shared_op_blob ORDER BY id DESC LIMIT 1")
+    require(len(opblob.decode_entries_py(blob["data"])) == blob["n_ops"], "blob op count")
+
+    done = {e["name"]: t for t, e in events}
+    emit("scan", files=len(rows), dirs=n_paths - len(rows), corpus_write_s=corpus_s,
+         wall_s=wall, files_per_s=len(rows) / wall,
+         indexer_s=done["indexer"] - t_start,
+         identifier_s=done["file_identifier"] - done["indexer"],
+         indexer_phase_s=reports["indexer"].metadata["phase_s"],
+         identifier_phase_s=ident["phase_s"], steps=len(steps), size_classes=classes,
+         k1_device_s=k1_s, k1_share_of_wall=k1_s / wall, h2d_device_s=copy_s,
+         h2d_share_of_wall=copy_s / wall,
+         launches=launches, pool=ident["pool"], objects=n_objects,
+         shared_op_rows=n_row_ops, shared_op_blob_ops=n_blob_ops,
+         independent_cuda_s=independent_s, plain_sample=len(sample),
+         plain_sample_s=plain_s, wal_bytes=os.path.getsize(db.path + "-wal")
+         if os.path.exists(db.path + "-wal") else 0, db_bytes=os.path.getsize(db.path))
+    return lib
+
+
+def expected_pages(sizes) -> list:
+    """The chunk grid C of each page ``validator.checksums_for_files`` packs
+    its small files into (each page pads to the pow2 chunk count of its
+    largest file)."""
+    from spacedrive_tpu_torch.objects import validator
+
+    pages, rows = [], 0
+    for sz in sorted(s for s in sizes if s <= validator.SMALL_FILE_CAP):
+        if rows and (rows >= validator.BATCH_ROWS
+                     or (rows + 1) * validator._padded_row(sz) > validator.BATCH_BYTES):
+            rows = 0
+        if rows == 0:
+            pages.append(0)
+        rows += 1
+        pages[-1] = validator._padded_row(sz) // 1024
+    return pages
+
+
+def fold_launches(C: int) -> int:
+    """blake3_tree_fold launches after a fused launch on a C-chunk grid."""
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    n, levels = -(-C // span_of(C, blake3_cuda.SPAN)), 0
+    while n > 1:
+        n = -(-n // span_of(n, blake3_cuda.SPAN))
+        levels += 1
+    return levels
+
+
+def phase_validate_job(workdir: Path, lib, sums: dict, counts: dict):
+    """Phase 8: scan phase 5's directory, then ObjectValidatorJob fill and
+    verify on the card."""
+    import asyncio
+    import os
+
+    from spacedrive_tpu_torch.jobs.manager import JobManager
+    from spacedrive_tpu_torch.jobs.report import JobStatus
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.objects.validator import ObjectValidatorJob
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    root = workdir / "validate"
+    location_id = locations.create_location(lib, str(root))
+    scan_wall = run_scan(lib, location_id, counts, "validate_dir_scan", [])
+    out = {}
+    for mode in ("fill", "verify"):
+        async def main():
+            jobs = JobManager()
+            jid = await jobs.ingest(lib, ObjectValidatorJob(location_id=location_id, mode=mode))
+            await jobs.wait_idle()
+            return jid
+
+        torch.cuda.synchronize()
+        blake3_cuda.reset_launches()
+        t0 = time.perf_counter()
+        jid = asyncio.run(main())
+        wall = time.perf_counter() - t0
+        counts[f"validate_job_{mode}"] = launches = dict(blake3_cuda.launches)
+        rep = next(r for r in job_reports(lib) if r.id == jid)
+        require(rep.status == JobStatus.COMPLETED,
+                f"validator {mode} ended {rep.status.name}: {rep.errors_text[:2]}")
+        require(rep.metadata.get("validated") == len(sums),
+                f"validator {mode} validated {rep.metadata.get('validated')}")
+        # K1 once per page (a page past one span folds too); the 64 MiB +
+        # 12345 B file streams in 9 windows of K2 and one fold each.
+        pages = expected_pages(os.path.getsize(p) for p in sums)
+        folds = 9 + sum(fold_launches(C) for C in pages)
+        require(launches[blake3_cuda.FAST] == len(pages),
+                f"validator {mode} launched {launches}, not {len(pages)} pages of K1")
+        require(launches[blake3_cuda.WINDOWED] == 9 and launches[blake3_cuda.FOLD] == folds,
+                f"validator {mode} launched {launches}, not 9 windows and {folds} folds")
+        out[mode] = dict(wall_s=wall, launches=launches, page_grids=pages,
+                         mismatched=rep.metadata.get("mismatched", 0))
+    require(out["verify"]["mismatched"] == 0, "verify found mismatches")
+    rows = lib.db.query("SELECT materialized_path, name, extension, integrity_checksum "
+                        "FROM file_path WHERE is_dir = 0 AND location_id = ?", (location_id,))
+    written = {_rel_path(str(root), r): r["integrity_checksum"] for r in rows}
+    require(written == sums, "validator checksums != phase 5's checksums_for_files")
+    emit("validate_job", files=len(written), scan_wall_s=scan_wall,
+         scan_launches=counts["validate_dir_scan"], **out)
+
+
 REPLACES = {
     "blake3_chunk_fast": "spacedrive_tpu/ops/blake3_pallas.py:121",
     "blake3_chunk_fast_cvs": "spacedrive_tpu/ops/blake3_pallas.py:121",
@@ -828,11 +1159,19 @@ def main() -> int:
     phase_identify_step(bound, stats)
     phase_small_grid(stats)
     (ROOT / "spacedrive_tpu_torch" / "_build").mkdir(parents=True, exist_ok=True)
+    # The corpus lives in the checkout, the library's SQLite files in the
+    # system temp dir (a WAL's -shm file is a shared memory map).
     with tempfile.TemporaryDirectory(
-            prefix="chip-smoke-", dir=ROOT / "spacedrive_tpu_torch" / "_build") as tmp:
-        large_files = phase_real_files(Path(tmp), counts)
-        phase_validate(Path(tmp), bound, counts, stats)
+            prefix="chip-smoke-", dir=ROOT / "spacedrive_tpu_torch" / "_build") as tmp, \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-lib-") as data_dir:
+        large_files, phase4_ids, planted = phase_real_files(Path(tmp), counts)
+        sums = phase_validate(Path(tmp), bound, counts, stats)
         phase_ring(Path(tmp), large_files, counts)
+        lib = phase_scan(Path(tmp), data_dir, phase4_ids, planted, counts)
+        try:
+            phase_validate_job(Path(tmp), lib, sums, counts)
+        finally:
+            lib.db.close()
 
     kernels = []
     for name, replaces in REPLACES.items():

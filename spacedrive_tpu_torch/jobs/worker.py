@@ -1,0 +1,155 @@
+"""The job run loop: one asyncio task per running job.
+
+Port of ``spacedrive_tpu/jobs/worker.py`` without its command inbox:
+``init``, then the steps in order (a step may append more), a crash
+checkpoint of the resumable state every ``CHECKPOINT_INTERVAL_S``,
+``finalize``, a passive WAL fold, and every status transition persisted.
+A step's exception is a non-fatal error in the report; a ``JobError`` or
+a failure outside a step fails the job after its ``cleanup``. Progress
+events are throttled to ``PROGRESS_THROTTLE_S`` and carry an ETA
+(worker.rs:228-292). Pause, resume, cancel and cold resume wait in
+ROADMAP.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+import traceback
+from collections import deque
+from typing import Any, Callable, List
+
+from .job import EarlyFinish, JobContext, JobError, JobState, StatefulJob, StepOutcome
+from .report import JobReport, JobStatus
+
+PROGRESS_THROTTLE_S = 0.5  # worker.rs:273
+# Periodic crash checkpoint: bounds what a hard kill replays.
+CHECKPOINT_INTERVAL_S = 3.0
+
+
+class Worker:
+    """Drives one job to completion or failure."""
+
+    def __init__(self, job: StatefulJob, report: JobReport, library: Any,
+                 on_event: Callable[[dict], None], next_chain: List[Any]):
+        self.job = job
+        self.report = report
+        self.library = library
+        self.on_event = on_event
+        self.next_chain = next_chain
+        self._last_progress_emit = 0.0
+        self._last_checkpoint = time.monotonic()
+        self._started_at = 0.0
+
+    def _progress(self, task_count=None, completed=None, message=None) -> None:
+        r = self.report
+        if task_count is not None:
+            r.task_count = task_count
+        if completed is not None:
+            r.completed_task_count = completed
+        now = time.monotonic()
+        if r.completed_task_count and r.task_count:
+            per_task = (now - self._started_at) / r.completed_task_count
+            remaining = per_task * (r.task_count - r.completed_task_count)
+            r.date_estimated_completion = int(time.time() + remaining)
+        if now - self._last_progress_emit >= PROGRESS_THROTTLE_S:
+            self._last_progress_emit = now
+            self.on_event({
+                "type": "JobProgress", "id": r.id.hex(), "name": r.name,
+                "task_count": r.task_count,
+                "completed_task_count": r.completed_task_count,
+                "message": message, "estimated_completion": r.date_estimated_completion,
+            })
+
+    async def run(self) -> JobStatus:
+        try:
+            status = await self._run_inner()
+        except Exception as e:  # noqa: BLE001 (a job-level failure)
+            await self._cleanup_quietly(None)
+            self.report.status = JobStatus.FAILED
+            self.report.errors_text.append("".join(traceback.format_exception(e)).strip())
+            self.report.date_completed = int(time.time())
+            self.report.data = None
+            await asyncio.to_thread(self.report.update, self.library.db)
+        else:
+            self.report.status = status
+        self.on_event({"type": "JobUpdate", "id": self.report.id.hex(),
+                       "name": self.report.name, "status": int(self.report.status)})
+        return self.report.status
+
+    async def _run_inner(self) -> JobStatus:
+        r = self.report
+        ctx = JobContext(self.library, report_progress=self._progress, job_id=r.id)
+        self._started_at = time.monotonic()
+        r.status = JobStatus.RUNNING
+        r.date_started = int(time.time())
+        await asyncio.to_thread(r.update, self.library.db)
+
+        try:
+            data, steps = await self.job.init(ctx)
+        except EarlyFinish:
+            r.status = JobStatus.COMPLETED
+            r.data = None  # clear the at-ingest state blob
+            r.date_completed = int(time.time())
+            await asyncio.to_thread(r.update, self.library.db)
+            return JobStatus.COMPLETED
+        state = JobState(
+            init_args=self.job.init_args, data=data, steps=deque(steps),
+            step_number=0, run_metadata={}, next_chain=self.next_chain)
+        if not r.task_count:
+            r.task_count = len(state.steps)
+
+        errors: List[str] = []
+        while state.steps:
+            try:
+                outcome = await self.job.execute_step(ctx, state.data, state.steps[0],
+                                                      state.step_number)
+            except JobError:
+                raise
+            except Exception as e:  # noqa: BLE001 (a non-fatal step error)
+                errors.append(f"step {state.step_number}: "
+                              + "".join(traceback.format_exception(e)).strip())
+                outcome = None
+            if isinstance(outcome, StepOutcome):
+                state.steps.extend(outcome.more_steps)
+                r.task_count += len(outcome.more_steps)
+                errors.extend(outcome.errors)
+                state.run_metadata.update(outcome.metadata)
+            state.steps.popleft()
+            state.step_number += 1
+            self._progress(completed=state.step_number)
+            now = time.monotonic()
+            if now - self._last_checkpoint >= CHECKPOINT_INTERVAL_S:
+                self._last_checkpoint = now
+                # Best effort: a checkpoint write must never kill a job.
+                try:
+                    await asyncio.to_thread(self._persist_state, state, errors)
+                except Exception:  # noqa: BLE001 (retried next interval)
+                    pass
+
+        meta = await self.job.finalize(ctx, state.data, state.run_metadata)
+        # Bulk jobs run with wal_autocheckpoint off: fold the WAL back now.
+        await asyncio.to_thread(self.library.db.checkpoint_passive)
+        if meta:
+            r.metadata.update(meta)
+        r.errors_text = errors
+        r.completed_task_count = state.step_number
+        r.data = None
+        r.date_completed = int(time.time())
+        r.status = JobStatus.COMPLETED_WITH_ERRORS if errors else JobStatus.COMPLETED
+        await asyncio.to_thread(r.update, self.library.db)
+        return r.status
+
+    def _persist_state(self, state: JobState, errors: List[str]) -> None:
+        """Write the resumable state blob (the crash checkpoint)."""
+        self.report.data = state.serialize()
+        self.report.errors_text = list(errors)
+        self.report.completed_task_count = state.step_number
+        self.report.update(self.library.db)
+
+    async def _cleanup_quietly(self, data) -> None:
+        """Run the job's no-finalize teardown; never raises."""
+        try:
+            await self.job.cleanup(JobContext(self.library, job_id=self.report.id), data)
+        except Exception:  # noqa: BLE001 (cleanup is best-effort)
+            pass

@@ -1,0 +1,89 @@
+"""Location CRUD + scan orchestration: the port's entry point.
+
+Port of ``spacedrive_tpu/locations/manager.py`` (upstream
+core/src/location/mod.rs): ``create_location`` writes the location row
+through sync and attaches indexer rules; ``scan_location`` chains
+``IndexerJob`` → ``FileIdentifierJob`` through the job builder
+(mod.rs:417-445); ``scan_location_sub_path`` rescans one directory.
+
+The identifier's ``backend`` defaults to ``"cuda"`` (the hand-written
+BLAKE3 kernel on the card) and the chain is refused at once where CUDA is
+absent. ``with_media`` defaults to False here (True in the JAX package):
+the media processor is not ported yet, and asking for it raises rather
+than skipping it.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Optional, Sequence
+
+from ..jobs.manager import JobBuilder, JobManager
+from ..objects.identifier import FileIdentifierJob
+from ..store import uuid_bytes
+from .indexer_job import IndexerJob
+
+
+class LocationError(Exception):
+    pass
+
+
+def create_location(library, path: str, indexer_rule_ids: Sequence[int] = (),
+                    name: Optional[str] = None) -> int:
+    """Create a location row (+ its sync op) for a directory: the path must
+    exist, be a directory, and not nest with an existing location."""
+    path = os.path.abspath(path)
+    if not os.path.isdir(path):
+        raise LocationError(f"{path} is not a directory")
+    for row in library.db.run("location.paths"):
+        other = row["path"] or ""
+        if other and (path == other
+                      or path.startswith(other.rstrip("/") + "/")
+                      or other.startswith(path.rstrip("/") + "/")):
+            raise LocationError(f"{path} overlaps existing location {other}")
+    pub_id = uuid_bytes()
+    name = name or os.path.basename(path) or path
+    sync = library.sync
+    ops = sync.shared_create("location", pub_id, {
+        "name": name, "path": path, "date_created": int(time.time()),
+    })
+    with sync.write_ops(ops) as conn:
+        loc_id = library.db.insert("location", {
+            "pub_id": pub_id, "name": name, "path": path,
+            "date_created": int(time.time()),
+            "instance_id": sync._instance_row_id(sync.instance, conn),
+        }, conn=conn)
+        for rid in indexer_rule_ids:
+            library.db.insert("indexer_rule_in_location", {
+                "location_id": loc_id, "indexer_rule_id": rid,
+            }, conn=conn)
+    return loc_id
+
+
+def _media(with_media: bool) -> None:
+    if with_media:
+        raise NotImplementedError(
+            "with_media=True: the media processor (MediaProcessorJob) is not "
+            "ported yet; scan with with_media=False")
+
+
+async def scan_location(jobs: JobManager, library, location_id: int,
+                        backend: str = "cuda", with_media: bool = False) -> bytes:
+    """Full rescan: the indexer → identifier chain (location/mod.rs:417-445).
+    Returns the indexer's job id; ``jobs.wait_idle()`` waits for the chain."""
+    _media(with_media)
+    builder = JobBuilder(IndexerJob(location_id=location_id)).queue_next(
+        FileIdentifierJob(location_id=location_id, backend=backend))
+    return await builder.spawn(jobs, library)
+
+
+async def scan_location_sub_path(jobs: JobManager, library, location_id: int,
+                                 sub_path: str, backend: str = "cuda",
+                                 with_media: bool = False) -> bytes:
+    """Rescan of one directory of a location and what lies under it."""
+    _media(with_media)
+    builder = JobBuilder(IndexerJob(location_id=location_id, sub_path=sub_path)) \
+        .queue_next(FileIdentifierJob(location_id=location_id, sub_path=sub_path,
+                                      backend=backend))
+    return await builder.spawn(jobs, library)

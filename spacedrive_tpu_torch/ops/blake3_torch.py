@@ -45,13 +45,17 @@ SMALL_CHUNKS = -(-SMALL_MSG_MAX // bb.CHUNK_LEN)  # 101
 
 
 def resolve_device(device) -> torch.device:
-    """torch.device for `device`; raises if CUDA is asked for and absent."""
+    """torch.device for `device`; raises if CUDA is asked for and absent.
+    A CUDA device always carries its index (the current one where `device`
+    names none), so two devices compare equal only when they are one card."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {device!r} requested but CUDA is not available; "
                 "pass device='cpu' to run the plain torch version")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev

@@ -52,7 +52,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -432,12 +432,18 @@ _BACKENDS = {
 }
 
 
-def cas_pool(files: Sequence[Tuple[str, int]], device="cuda") -> StagePool:
+def cas_pool(files: Union[Sequence[Tuple[str, int]], int], device="cuda") -> StagePool:
     """A two-page pool whose pages hold either size class of `files`: the
-    identify path stages its large and small rows into one page each."""
-    large_idx, small_idx, _ = _classes(files)
-    need = max(StagePool.bytes_for(len(large_idx), _grid_for(cas.LARGE_PAYLOAD_SIZE)[1]),
-               StagePool.bytes_for(len(small_idx), _grid_for(cas.MINIMUM_FILE_SIZE)[1]),
+    identify path stages its large and small rows into one page each. An
+    int `files` sizes the pages for that many files of either class, the
+    pool a caller keeps across identify steps of up to that many files."""
+    if isinstance(files, int):
+        large = small = max(files, 1)
+    else:
+        large_idx, small_idx, _ = _classes(files)
+        large, small = len(large_idx), len(small_idx)
+    need = max(StagePool.bytes_for(large, _grid_for(cas.LARGE_PAYLOAD_SIZE)[1]),
+               StagePool.bytes_for(small, _grid_for(cas.MINIMUM_FILE_SIZE)[1]),
                1)
     return StagePool(device, 2, need)
 

@@ -1,0 +1,290 @@
+"""SQLite store: one database file per library, single-writer discipline.
+
+Port of ``spacedrive_tpu/store/db.py``: a thin wrapper over the stdlib
+``sqlite3`` module in WAL mode, one connection per thread, one process-wide
+write lock per database, every write inside a ``tx()`` batch. The schema
+comes from ``store/models.py`` and the named statements from
+``store/statements.py``.
+
+What is kept exactly: the connection pragmas (WAL, ``synchronous=NORMAL``,
+foreign keys, the 256 MiB page cache and 1 GiB mmap, ``temp_store=MEMORY``,
+``wal_autocheckpoint=0``, ``journal_size_limit``), ``BEGIN IMMEDIATE`` …
+``COMMIT`` with a short retry when the file is busy, the passive WAL fold
+every 128 commits once the WAL passes 256 MiB, the schema bootstrap
+(tables, then indexes) and the typed helpers. The JAX package's upgrades of
+older libraries (additive columns, dropping op-log indexes an older schema
+built eagerly) are left to it: the port opens the schema it creates.
+
+``write_tx`` takes the shape the JAX package runs with its group-commit
+actor off (``SDTPU_STORE_ACTOR=off``): one ``BEGIN IMMEDIATE`` … ``COMMIT``
+per batch, and a nested call rides the enclosing transaction under a
+savepoint. The commits and their guarantees are the same; batches of
+concurrent writers are not coalesced. Reads on a thread with no open
+transaction use that thread's own connection (the JAX package lends a
+pooled read-only one).
+"""
+
+from __future__ import annotations
+
+import os
+import sqlite3
+import threading
+import time
+import uuid
+from contextlib import contextmanager
+from typing import Any, Dict, Iterable, List, Optional, Sequence
+
+from . import models, statements
+from ..sync.crdt import uuid4_bytes
+
+# Delays between retries of a COMMIT (or a read) that found the file busy:
+# about 2 s in all, then the error goes to the caller.
+_BUSY_DELAYS_S = (0.005, 0.01, 0.02, 0.04, 0.08, 0.16, 0.32, 0.64, 0.8)
+
+
+def uuid_bytes(u: Optional[uuid.UUID] = None) -> bytes:
+    """Stable 16-byte id; fresh ids are time-ordered (``sync.crdt``)."""
+    if u is not None:
+        return u.bytes
+    return uuid4_bytes()
+
+
+def _busy(e: sqlite3.OperationalError) -> bool:
+    msg = str(e).lower()
+    return "locked" in msg or "busy" in msg
+
+
+class Database:
+    """A single SQLite database with serialized writes."""
+
+    # With wal_autocheckpoint off, every N commits the WAL size is checked
+    # and folded back passively past this budget.
+    _WAL_CHECK_EVERY = 128
+    _WAL_BUDGET_BYTES = 256 << 20
+
+    def __init__(self, path: str | os.PathLike):
+        self.path = str(path)
+        self._write_lock = threading.RLock()
+        self._conns_lock = threading.Lock()
+        self._local = threading.local()
+        self._all_conns: List[sqlite3.Connection] = []
+        self._closed = False
+        self._commits = 0
+        conn = self._conn()
+        with self._write_lock:
+            ddl = models.all_ddl()
+            tables = [d for d in ddl if not d.lstrip().upper()
+                      .startswith(("CREATE INDEX", "CREATE UNIQUE INDEX"))]
+            for stmt in tables + [d for d in ddl if d not in tables]:
+                conn.execute(stmt)
+            conn.commit()
+
+    def _conn(self) -> sqlite3.Connection:
+        if self._closed:
+            raise sqlite3.ProgrammingError("database is closed")
+        conn = getattr(self._local, "conn", None)
+        if conn is None:
+            conn = sqlite3.connect(self.path, timeout=30.0, check_same_thread=False)
+            conn.row_factory = sqlite3.Row
+            conn.execute("PRAGMA journal_mode=WAL")
+            conn.execute("PRAGMA foreign_keys=ON")
+            conn.execute("PRAGMA synchronous=NORMAL")
+            conn.execute("PRAGMA cache_size=-262144")
+            conn.execute("PRAGMA mmap_size=1073741824")
+            conn.execute("PRAGMA temp_store=MEMORY")
+            # Bulk jobs checkpoint when they finish (jobs/worker.py) and
+            # tx() folds a WAL past the budget; no automatic checkpoints.
+            conn.execute("PRAGMA wal_autocheckpoint=0")
+            conn.execute(f"PRAGMA journal_size_limit={self._WAL_BUDGET_BYTES}")
+            with self._conns_lock:
+                if self._closed:
+                    conn.close()
+                    raise sqlite3.ProgrammingError("database is closed")
+                self._all_conns.append(conn)
+            self._local.conn = conn
+        return conn
+
+    def close(self) -> None:
+        """Close every thread's connection; later use raises."""
+        with self._write_lock:
+            with self._conns_lock:
+                self._closed = True
+                for conn in self._all_conns:
+                    try:
+                        conn.close()
+                    except sqlite3.Error:
+                        pass
+                self._all_conns.clear()
+                self._local = threading.local()
+
+    # -- reads ------------------------------------------------------------
+
+    def _read_conn(self) -> sqlite3.Connection:
+        """The open transaction on this thread (a read inside it must see
+        its uncommitted writes), else this thread's connection."""
+        return getattr(self._local, "tx_conn", None) or self._conn()
+
+    def _execute_read(self, conn: sqlite3.Connection, sql: str,
+                      params: Sequence) -> sqlite3.Cursor:
+        for delay in _BUSY_DELAYS_S + (None,):
+            try:
+                return conn.execute(sql, params)
+            except sqlite3.OperationalError as e:
+                if not _busy(e) or delay is None:
+                    raise
+                time.sleep(delay)
+
+    def query(self, sql: str, params: Sequence = ()) -> List[sqlite3.Row]:
+        return self._execute_read(self._read_conn(), sql, params).fetchall()
+
+    def query_one(self, sql: str, params: Sequence = ()) -> Optional[sqlite3.Row]:
+        return self._execute_read(self._read_conn(), sql, params).fetchone()
+
+    # -- named statements -------------------------------------------------
+
+    def run(self, name: str, params: Sequence = (), conn=None):
+        """Execute the named statement. A read returns what its
+        cardinality promises (``one`` → Row | None, ``many`` → rows,
+        ``scalar`` → the first column of the first row); pass ``conn=``
+        to read inside an open transaction. A write needs the open
+        ``tx()`` connection and returns the cursor."""
+        st = statements.get(name)
+        if st.verb == "write":
+            if conn is None:
+                raise RuntimeError(f"{name}: write statements run on the open "
+                                   "tx() connection; pass conn= (or use run_tx)")
+            return conn.execute(st.sql, params)
+        cur = conn.execute(st.sql, params) if conn is not None else \
+            self._execute_read(self._read_conn(), st.sql, params)
+        if st.cardinality == "many":
+            return cur.fetchall()
+        row = cur.fetchone()
+        if st.cardinality == "scalar":
+            return row[0] if row is not None else None
+        return row
+
+    def run_many(self, name: str, seq: Iterable[Sequence], conn=None) -> sqlite3.Cursor:
+        """executemany of a named write statement on the open connection."""
+        st = statements.get(name)
+        if st.verb != "write" or conn is None:
+            raise RuntimeError(f"{name}: run_many is for write statements "
+                               "on the open tx() connection")
+        return conn.executemany(st.sql, seq)
+
+    def run_tx(self, name: str, params: Sequence = ()) -> sqlite3.Cursor:
+        """One named write statement as its own write batch."""
+        with self.write_tx() as c:
+            return self.run(name, params, conn=c)
+
+    # -- writes -----------------------------------------------------------
+
+    @contextmanager
+    def tx(self):
+        """Serialized write transaction: ``BEGIN IMMEDIATE`` … ``COMMIT``
+        under the write lock; reads on this thread see it until it ends."""
+        conn = self._conn()
+        with self._write_lock:
+            prev = getattr(self._local, "tx_conn", None)
+            self._local.tx_conn = conn
+            try:
+                conn.execute("BEGIN IMMEDIATE")
+                yield conn
+                self._commit_with_retry(conn)
+            except BaseException:
+                conn.rollback()
+                raise
+            finally:
+                self._local.tx_conn = prev
+            self._commits += 1
+            if self._commits % self._WAL_CHECK_EVERY == 0:
+                try:
+                    if os.path.getsize(self.path + "-wal") > self._WAL_BUDGET_BYTES:
+                        conn.execute("PRAGMA wal_checkpoint(PASSIVE)")
+                except (OSError, sqlite3.Error):
+                    pass
+
+    @staticmethod
+    def _commit_with_retry(conn: sqlite3.Connection) -> None:
+        for delay in _BUSY_DELAYS_S + (None,):
+            try:
+                conn.commit()
+                return
+            except sqlite3.OperationalError as e:
+                if not _busy(e) or delay is None:
+                    raise
+                time.sleep(delay)
+
+    @contextmanager
+    def write_tx(self):
+        """One write batch: its own ``tx()``, or a savepoint of the
+        transaction already open on this thread."""
+        outer = getattr(self._local, "tx_conn", None)
+        if outer is None:
+            with self.tx() as conn:
+                yield conn
+            return
+        outer.execute("SAVEPOINT sdtpu_wtx")
+        try:
+            yield outer
+        except BaseException:
+            outer.execute("ROLLBACK TO sdtpu_wtx")
+            outer.execute("RELEASE sdtpu_wtx")
+            raise
+        outer.execute("RELEASE sdtpu_wtx")
+
+    def checkpoint(self) -> None:
+        """Flush the WAL into the main file; never inside a transaction."""
+        with self._write_lock:
+            self._conn().execute("PRAGMA wal_checkpoint(TRUNCATE)")
+
+    def checkpoint_passive(self) -> None:
+        """Best-effort WAL flush at the end of a bulk job."""
+        try:
+            with self._write_lock:
+                self._conn().execute("PRAGMA wal_checkpoint(PASSIVE)")
+        except sqlite3.Error:
+            pass
+
+    # -- typed helpers over the model registry ----------------------------
+
+    def _write(self, conn, fn):
+        if conn is not None:
+            return fn(conn)
+        with self.write_tx() as c:
+            return fn(c)
+
+    def insert(self, table: str, row: Dict[str, Any], conn=None) -> int:
+        sql = (f"INSERT INTO {table} ({', '.join(row)}) "
+               f"VALUES ({', '.join('?' for _ in row)})")
+        return self._write(conn, lambda c: c.execute(sql, list(row.values())).lastrowid)
+
+    def insert_many(self, table: str, rows: List[Dict[str, Any]], conn=None,
+                    ignore_conflicts: bool = False) -> int:
+        """Batched create; returns the number of rows inserted. Missing
+        keys in a row insert NULL."""
+        if not rows:
+            return 0
+        cols = list(dict.fromkeys(k for r in rows for k in r))
+        conflict = " OR IGNORE" if ignore_conflicts else ""
+        sql = (f"INSERT{conflict} INTO {table} ({', '.join(cols)}) "
+               f"VALUES ({', '.join('?' for _ in cols)})")
+        vals = [[r.get(c) for c in cols] for r in rows]
+        return self._write(conn, lambda c: c.executemany(sql, vals).rowcount)
+
+    def update(self, table: str, row_id: Any, values: Dict[str, Any], conn=None,
+               id_col: str = "id") -> None:
+        if not values:
+            return
+        sql = (f"UPDATE {table} SET {', '.join(f'{k} = ?' for k in values)} "
+               f"WHERE {id_col} = ?")
+        self._write(conn, lambda c: c.execute(sql, [*values.values(), row_id]))
+
+    def upsert(self, table: str, key: Dict[str, Any], values: Dict[str, Any],
+               conn=None) -> None:
+        cols = list(key) + list(values)
+        sets = ", ".join(f"{k} = excluded.{k}" for k in values) or \
+            f"{list(key)[0]} = excluded.{list(key)[0]}"
+        sql = (f"INSERT INTO {table} ({', '.join(cols)}) "
+               f"VALUES ({', '.join('?' for _ in cols)}) "
+               f"ON CONFLICT ({', '.join(key)}) DO UPDATE SET {sets}")
+        self._write(conn, lambda c: c.execute(sql, [*key.values(), *values.values()]))

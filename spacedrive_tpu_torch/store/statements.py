@@ -1,0 +1,135 @@
+"""The named SQL statements the scan chain runs.
+
+A subset of ``spacedrive_tpu/store/statements.py``: each statement the
+port's store, sync, library, indexer, identifier and validator execute,
+under the JAX package's name and with its SQL text (whitespace-collapsed,
+as the JAX registry keeps it; ``tests/test_torch_store.py`` holds the two
+texts equal). Call sites hold only the name and run it through
+``Database.run`` / ``run_many`` / ``run_tx``. The JAX registry's contract
+checks (declared tables, the runtime SQL auditor, template shapes) are not
+ported: the port's dynamic SQL is written inline where it runs, as in the
+JAX package.
+"""
+
+from __future__ import annotations
+
+import re
+from dataclasses import dataclass
+from typing import Dict
+
+
+@dataclass(frozen=True)
+class Stmt:
+    name: str
+    sql: str
+    verb: str          # read | write
+    cardinality: str   # one | many | scalar for reads, none for writes
+
+
+STATEMENTS: Dict[str, Stmt] = {}
+
+_WS = re.compile(r"\s+")
+
+
+def _declare(name: str, sql: str, verb: str, cardinality: str = "none") -> None:
+    if name in STATEMENTS:
+        raise ValueError(f"statement {name!r} declared twice")
+    STATEMENTS[name] = Stmt(name, _WS.sub(" ", sql).strip(), verb, cardinality)
+
+
+def get(name: str) -> Stmt:
+    try:
+        return STATEMENTS[name]
+    except KeyError:
+        raise KeyError(f"undeclared statement {name!r}") from None
+
+
+# -- store (store/db.py) ----------------------------------------------------
+_declare("store.object_count",
+         "SELECT COUNT(*) AS n FROM object", "read", "one")
+_declare("store.last_rowid", "SELECT last_insert_rowid()", "read", "scalar")
+
+# -- sync write path (sync/manager.py) --------------------------------------
+_declare("sync.instances.all",
+         "SELECT id, pub_id, timestamp FROM instance", "read", "many")
+_declare("sync.instances.id_by_pub",
+         "SELECT id FROM instance WHERE pub_id = ?", "read", "one")
+_declare("sync.oplog.insert_shared",
+         "INSERT INTO shared_operation "
+         "(timestamp, model, record_id, kind, data, instance_id) "
+         "VALUES (?, ?, ?, ?, ?, ?)", "write")
+_declare("sync.blob.insert",
+         "INSERT INTO shared_op_blob "
+         "(model, min_ts, max_ts, n_ops, data, instance_id) "
+         "VALUES (?, ?, ?, ?, ?, ?)", "write")
+
+# -- library statistics (library.py) ----------------------------------------
+_declare("library.stats.path_count",
+         "SELECT COUNT(*) AS n FROM file_path", "read", "one")
+_declare("library.stats.file_sizes",
+         "SELECT size_in_bytes_bytes FROM file_path WHERE is_dir = 0",
+         "read", "many")
+_declare("library.stats.unique_sizes",
+         "SELECT MIN(size_in_bytes_bytes) AS s FROM file_path "
+         "WHERE is_dir = 0 AND object_id IS NOT NULL GROUP BY object_id",
+         "read", "many")
+_declare("library.stats.clear", "DELETE FROM statistics", "write")
+_declare("library.stats.insert",
+         "INSERT INTO statistics (total_object_count, library_db_size, "
+         "total_unique_bytes, total_bytes_used) VALUES (?, ?, ?, ?)", "write")
+
+# -- locations (locations/manager.py, rules.py) -----------------------------
+_declare("location.paths", "SELECT path FROM location", "read", "many")
+_declare("location.by_id",
+         "SELECT * FROM location WHERE id = ?", "read", "one")
+_declare("location.rules_for",
+         "SELECT ir.* FROM indexer_rule ir JOIN indexer_rule_in_location irl "
+         "ON irl.indexer_rule_id = ir.id WHERE irl.location_id = ?",
+         "read", "many")
+
+# -- indexer (locations/indexer_job.py) -------------------------------------
+_declare("indexer.path_by_key",
+         "SELECT * FROM file_path WHERE location_id = ? AND "
+         "materialized_path = ? AND name = ? AND extension = ?", "read", "one")
+_declare("indexer.children",
+         "SELECT pub_id, cas_id, is_dir, materialized_path, name, extension "
+         "FROM file_path WHERE location_id = ? AND materialized_path = ?",
+         "read", "many")
+_declare("indexer.path_current",
+         "SELECT materialized_path, name FROM file_path WHERE pub_id = ?",
+         "read", "one")
+_declare("indexer.path_delete_by_pub",
+         "DELETE FROM file_path WHERE pub_id = ?", "write")
+_declare("indexer.id_pub_by_key",
+         "SELECT id, pub_id FROM file_path WHERE location_id = ? AND "
+         "materialized_path = ? AND name = ? AND extension = ?", "read", "one")
+_declare("indexer.set_dir_size",
+         "UPDATE file_path SET size_in_bytes_bytes = ? WHERE id = ?", "write")
+
+# -- job scratch rows (jobs, indexer) ---------------------------------------
+_declare("jobs.scratch.insert",
+         "INSERT INTO job_scratch (job_id, data) VALUES (?, ?)", "write")
+_declare("jobs.scratch.data",
+         "SELECT data FROM job_scratch WHERE id = ?", "read", "one")
+_declare("jobs.scratch.delete",
+         "DELETE FROM job_scratch WHERE id = ?", "write")
+_declare("jobs.scratch.delete_for_job",
+         "DELETE FROM job_scratch WHERE job_id = ?", "write")
+
+# -- identifier (objects/identifier.py) -------------------------------------
+_declare("identifier.object_insert",
+         "INSERT INTO object (pub_id, kind, date_created) VALUES (?, ?, ?)",
+         "write")
+_declare("identifier.object_by_pub",
+         "SELECT id FROM object WHERE pub_id = ?", "read", "one")
+_declare("identifier.link_paths",
+         "UPDATE file_path SET cas_id = ?, object_id = ? WHERE id = ?", "write")
+_declare("identifier.cas_map",
+         "SELECT fp.cas_id AS c, o.id AS oid, o.pub_id AS opub "
+         "FROM file_path fp JOIN object o ON o.id = fp.object_id "
+         "WHERE fp.cas_id IS NOT NULL", "read", "many")
+
+# -- validator (objects/validator.py) ---------------------------------------
+_declare("validator.fill_checksum",
+         "UPDATE file_path SET integrity_checksum = ? "
+         "WHERE id = ? AND integrity_checksum IS NULL", "write")

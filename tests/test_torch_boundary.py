@@ -2,7 +2,9 @@
 
 - Nothing under ``spacedrive_tpu_torch/`` nor ``chip_smoke.py`` imports
   ``jax``, ``jaxlib`` or the JAX package ``spacedrive_tpu`` (the port keeps
-  its own copies of the framework-free modules), and no C++ or CUDA source
+  its own copies of the framework-free modules), nor ``msgpack``, ``PIL``
+  or ``cryptography``, which the GPU machine does not have (the port
+  carries its own msgpack codec), and no C++ or CUDA source
   of the port includes a file outside ``spacedrive_tpu_torch/csrc/``.
 - Asking an entry point for CUDA where there is none raises instead of
   running on the CPU, and a kernel wrapper given a CPU tensor takes the
@@ -10,6 +12,7 @@
 """
 
 import ast
+import asyncio
 import re
 from pathlib import Path
 
@@ -17,13 +20,15 @@ import numpy as np
 import pytest
 import torch
 
+from spacedrive_tpu_torch.locations import manager as locations
 from spacedrive_tpu_torch.objects import validator
+from spacedrive_tpu_torch.objects.identifier import FileIdentifierJob
 from spacedrive_tpu_torch.ops import blake3_batch as bb
 from spacedrive_tpu_torch.ops import blake3_cuda, blake3_torch, overlap, seqhash, staging
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "spacedrive_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "spacedrive_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "spacedrive_tpu", "msgpack", "PIL", "cryptography"}
 CSRC = ROOT / "spacedrive_tpu_torch" / "csrc"
 NATIVE_SOURCES = sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".cpp", ".h"))
 INCLUDE = re.compile(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', re.M)
@@ -56,7 +61,7 @@ def _imported(tree: ast.AST):
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
-def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
+def test_port_imports_nothing_of_jax_nor_what_the_gpu_host_lacks(path):
     bad = sorted(m for m in _imported(ast.parse(path.read_text(), str(path)))
                  if m.split(".")[0] in FORBIDDEN)
     assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
@@ -65,15 +70,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 def test_forbidden_import_detector_catches_every_spelling():
     src = ("import jax.numpy as jnp\nfrom spacedrive_tpu.ops import cas\n"
            "import importlib\nimportlib.import_module('jaxlib')\n"
-           "from spacedrive_tpu_torch.ops import cas\nfrom . import x\n")
+           "def f():\n    import msgpack\n"
+           "from PIL import Image\n__import__('cryptography.hazmat')\n"
+           "from spacedrive_tpu_torch.ops import cas\nfrom . import x\n"
+           "from spacedrive_tpu_torch import _msgpack\n")
     found = {m.split(".")[0] for m in _imported(ast.parse(src))} & FORBIDDEN
     assert found == FORBIDDEN
 
 
-def test_scan_covers_the_staging_plane_and_the_ring():
+def test_scan_covers_the_staging_plane_the_ring_and_the_scan_chain():
     port = ROOT / "spacedrive_tpu_torch"
     assert {port / "native.py", port / "ops" / "overlap.py",
-            port / "ops" / "staging.py"} <= set(PORT_FILES)
+            port / "ops" / "staging.py", port / "_msgpack.py",
+            port / "store" / "db.py", port / "sync" / "manager.py",
+            port / "jobs" / "worker.py", port / "locations" / "manager.py",
+            port / "objects" / "identifier.py"} <= set(PORT_FILES)
     assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp"}
 
 
@@ -118,9 +129,16 @@ def _grid():
     lambda: overlap.run_overlapped([(["/nonexistent"], np.array([200_000], np.uint64))],
                                    depth=1, devices=["cuda"]),
     lambda: blake3_torch.words_to_device(*_grid(), device="cuda", non_blocking=True),
+    lambda: FileIdentifierJob(location_id=1),
+    lambda: FileIdentifierJob(location_id=1, backend="cuda", device_batch=8),
+    lambda: validator.ObjectValidatorJob(location_id=1),
+    lambda: asyncio.run(locations.scan_location(None, None, 1)),
+    lambda: asyncio.run(locations.scan_location_sub_path(None, None, 1, "a")),
 ], ids=["blake3_words", "words_to_device", "cas_ids", "checksums",
         "cas_ids_for_files", "validator", "streaming", "stage_batch_native",
-        "cas_pool", "run_overlapped", "words_to_device_non_blocking"])
+        "cas_pool", "run_overlapped", "words_to_device_non_blocking",
+        "file_identifier_job", "file_identifier_job_batch", "object_validator_job",
+        "scan_location", "scan_location_sub_path"])
 def test_cuda_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -7,6 +7,8 @@ without the JAX package's test configuration:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import asyncio
+
 import numpy as np
 import pytest
 import torch
@@ -164,3 +166,78 @@ def test_non_blocking_copy_needs_a_pinned_source(cuda):
                                         non_blocking=True)
     torch.cuda.synchronize()
     assert w.is_cuda and torch.equal(w.cpu(), words) and torch.equal(n.cpu(), lengths)
+
+
+def _scan(data_dir, root, backend, device_batch=None):
+    """Index + identify `root` in a fresh library; (library, identifier report)."""
+    from spacedrive_tpu_torch.jobs.manager import JobBuilder, JobManager
+    from spacedrive_tpu_torch.jobs.report import JobReport
+    from spacedrive_tpu_torch.library import Libraries
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.locations.indexer_job import IndexerJob
+    from spacedrive_tpu_torch.objects.identifier import FileIdentifierJob
+
+    lib = Libraries(str(data_dir)).create("cuda-test")
+    loc = locations.create_location(lib, str(root))
+
+    async def main():
+        jobs = JobManager()
+        if device_batch is None:
+            await locations.scan_location(jobs, lib, loc, backend=backend)
+        else:
+            await JobBuilder(IndexerJob(location_id=loc)).queue_next(FileIdentifierJob(
+                location_id=loc, backend=backend, device_batch=device_batch)).spawn(jobs, lib)
+        await jobs.wait_idle()
+
+    asyncio.run(main())
+    row = lib.db.query_one("SELECT * FROM job WHERE name = 'file_identifier'")
+    return lib, JobReport.from_row(row)
+
+
+def _step_size_classes(lib, step):
+    """Size classes with rows, summed over the identifier's pages of `step`
+    orphans in id order: the K1 launches the scan should make."""
+    from spacedrive_tpu_torch.ops.cas import MINIMUM_FILE_SIZE
+
+    sizes = [int.from_bytes(r["size_in_bytes_bytes"], "big") for r in lib.db.query(
+        "SELECT size_in_bytes_bytes FROM file_path WHERE is_dir = 0 ORDER BY id")]
+    return sum(any(s > MINIMUM_FILE_SIZE for s in page)
+               + any(0 < s <= MINIMUM_FILE_SIZE for s in page)
+               for page in (sizes[k:k + step] for k in range(0, len(sizes), step)))
+
+
+def _identity(lib):
+    rows = lib.db.query("SELECT materialized_path, name, cas_id, object_id FROM file_path "
+                        "WHERE is_dir = 0")
+    groups = {}
+    for r in rows:
+        groups.setdefault(r["object_id"], set()).add(r["materialized_path"] + r["name"])
+    return ({r["materialized_path"] + r["name"]: r["cas_id"] for r in rows},
+            sorted(sorted(g) for g in groups.values()))
+
+
+@pytest.mark.parametrize("device_batch", [None, 500])
+def test_scan_location_on_the_card_matches_plain(cuda, tmp_path, device_batch):
+    rng = np.random.default_rng(17)
+    root = tmp_path / "corpus"
+    _marked_corpus(root / "large", 1536, 512)
+    (root / "small").mkdir()
+    for i in range(509):
+        (root / "small" / f"s{i}").write_bytes(
+            rng.integers(0, 256, int(rng.integers(1, 102_400)), dtype=np.uint8).tobytes())
+    (root / "small" / "dup-a").write_bytes(b"same bytes" * 100)
+    (root / "small" / "dup-b").write_bytes(b"same bytes" * 100)
+    (root / "small" / "empty").write_bytes(b"")
+    blake3_cuda.reset_launches()
+    lib, report = _scan(tmp_path / "cuda", root, "cuda", device_batch)
+    launches = dict(blake3_cuda.launches)
+    plain_lib, plain_report = _scan(tmp_path / "plain", root, "plain")
+    cas, groups = _identity(lib)
+    assert len(cas) == 2048 and (cas, groups) == _identity(plain_lib)
+    assert report.status == plain_report.status == 2  # COMPLETED
+    meta = report.metadata
+    assert meta["chunk_size"] == (device_batch or 16384)
+    assert launches[blake3_cuda.FAST] == _step_size_classes(lib, meta["chunk_size"]) >= 2
+    assert sum(launches.values()) == launches[blake3_cuda.FAST]
+    assert meta["pool"]["in_use_after_hash"] == meta["pool"]["in_use_at_end"] == 0
+    assert meta["pool"]["pinned_bytes"] > 0

@@ -5,14 +5,15 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``spacedrive_tpu_torch/csrc`` with
-``nvcc``, drives the identify and validate hash paths through the entry
-points a user calls, holds every kernel form against its plain torch
-version on the same inputs on the card (bit-exact: the data is integer
-hashes), checks results against the pure-Python BLAKE3 oracle, and times
-each kernel with CUDA events. Phases:
+It builds the port's native sources from ``spacedrive_tpu_torch/csrc``
+(``nvcc`` and ``g++``, all at once), drives the identify, validate and
+near-dup paths through the entry points a user calls, holds every kernel
+form against its plain torch version on the same inputs on the card
+(bit-exact: the data is integer hashes and masks), checks results against
+the pure-Python BLAKE3 oracle and a brute force, and times each kernel
+with CUDA events. Phases:
 
-1. build   — compile the kernels, print the build time, the ptxas report
+1. build   — compile every source, print the build time, the ptxas reports
    and the SASS instruction mix of one compression in the chunk loop
    (beside the function's own operation counts, which set the bound);
 2. identify step — B = 16384 large-file rows ([16384, 57, 256] words, the
@@ -52,12 +53,31 @@ each kernel with CUDA events. Phases:
    ``ObjectValidatorJob`` in ``fill`` mode (every checksum equal to phase
    5's, K1 per page, 9 K2 windows and 9 folds for the 64 MiB file) and in
    ``verify`` mode (no mismatch);
-9. the kernel table as one JSON line, launches summed over phases 4-8.
+9. near-dup job — two image locations written by the harness's own PNG and
+   BMP writer in the system temp dir: A, about 10 000 images of 48–800 px a
+   side (every PNG colour type, depth and row filter, BMP at 8, 24 and 32
+   bits, 300 planted near-dup groups, 100 byte-identical copies, 20 files
+   the decoder must refuse), and B, about 2 000. Each is scanned with
+   ``scan_location(backend="cuda")``, then ``NearDupDetectorJob(backend=
+   "cuda")`` decodes on the host, pHashes 256-image steps on the card and
+   runs the exact pairs search: the pyramid at A's ~9 900 digests, one
+   ``hamming_near_mask`` launch at B's ~1 950. Checked: the job's errors are
+   exactly the refused files; the native grids equal the plain decoder's on
+   a 1024-file sample and every stored pHash the plain pHash of its grid
+   (under the tie rule); the stored pairs equal a numpy brute force,
+   distances included; every planted pair is found;
+10. near-dup at scale — ``near_dup_pairs(device="cuda")`` at 100 000
+   digests against ``hamming_near_mask`` tiled over the card, at 1 000 000
+   with 5 000 planted pairs (recall 1, every distance re-checked on the
+   host), a degenerate cluster past ``MAX_TOTAL_PAIRS`` (the warning, the
+   count dropped), and ``hamming_near_mask`` against its plain version bit
+   for bit at B's shape, [4096, 2] and [4096, 8], timed;
+11. the kernel table as one JSON line, launches summed over phases 4-9.
 
 Launch counts are reset just before each main path (phases 4 and 5, each
-ring run of phase 6, the scans of phases 7 and 8 and each validator job)
-and read just after; launches made to compare or time a kernel are not
-counted. Every failure raises, so the exit code is 0 only if every phase
+ring run of phase 6, the scans of phases 7, 8 and 9, each validator job
+and each near-dup job) and read just after; launches made to compare or
+time a kernel are not counted. Every failure raises, so the exit code is 0 only if every phase
 passed. The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,12 +86,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -258,15 +280,25 @@ def kernel_stats(bound: Bound, ms: float, plain_ms: float, work: tuple, err: int
 
 
 def phase_build():
+    """Build every native source of the port at once (one compiler process
+    each), then read the chunk kernel's SASS."""
+    import concurrent.futures
+
     from spacedrive_tpu_torch.ops import _build
 
+    names = ("blake3_chunk", "hamming", "sdio_stage", "imgdec")
     t0 = time.perf_counter()
-    _build.library("blake3_chunk")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(_build.compile_source, names))
     seconds = time.perf_counter() - t0
+    for name in names:
+        _build.library(name)
+    ptxas = {}
+    for name in ("blake3_chunk", "hamming"):
+        log = _build.library_path(name).with_suffix(".log").read_text()
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     lib = _build.library_path("blake3_chunk")
-    log = lib.with_suffix(".log").read_text()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -275,7 +307,8 @@ def phase_build():
     ops = sass_loop_opcodes(sass, "blake3_chunk_spanILb0ELb0EE")
     alu = sum(v for k, v in ops.items() if k in ALU_OPS)
     fma = sum(v for k, v in ops.items() if k in FMA_OPS)
-    emit("build", seconds=seconds, ptxas=ptxas, sass_loop_opcodes=dict(ops.most_common()),
+    emit("build", seconds=seconds, sources=list(names), ptxas=ptxas,
+         sass_loop_opcodes=dict(ops.most_common()),
          compiled=dict(alu_insns=alu, fma_insns=fma, issued=sum(ops.values()),
                        alu_cycles_per_lane=alu / ALU_LANES),
          function=dict(ops=COMPRESSION_OPS, alu_ops=COMPRESSION_ALU_OPS,
@@ -1127,6 +1160,662 @@ def phase_validate_job(workdir: Path, lib, sums: dict, counts: dict):
          scan_launches=counts["validate_dir_scan"], **out)
 
 
+# -- PNG and BMP writer (harness code: the near-dup corpus and the tests) -----
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def png_chunk(kind: bytes, payload: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(payload, zlib.crc32(kind))))
+
+
+def pack_bits(values: np.ndarray, depth: int) -> np.ndarray:
+    """[h, w] values below 2**depth → [h, rowbytes] bytes, MSB first."""
+    h, w = values.shape
+    per = 8 // depth
+    wide = np.zeros((h, -(-w // per) * per), np.uint16)
+    wide[:, :w] = values
+    shifts = (8 - depth) - depth * np.arange(per, dtype=np.uint16)
+    return (wide.reshape(h, -1, per) << shifts).sum(axis=2).astype(np.uint8)
+
+
+def png_filter(rows: np.ndarray, bpp: int, filters: np.ndarray) -> bytes:
+    """[h, rowbytes] raw bytes → the filtered scanlines, row y with PNG
+    filter filters[y] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth). Filtering
+    reads only raw bytes, so every row is predicted at once."""
+    r = rows.astype(np.int16)
+    h, rb = r.shape
+    a = np.zeros_like(r)
+    a[:, bpp:] = r[:, :rb - bpp] if rb > bpp else a[:, bpp:]
+    b = np.zeros_like(r)
+    b[1:] = r[:-1]
+    c = np.zeros_like(r)
+    c[1:, bpp:] = b[1:, :rb - bpp] if rb > bpp else c[1:, bpp:]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(r), a, b, (a + b) >> 1, paeth])
+    out = np.empty((h, rb + 1), np.uint8)
+    out[:, 0] = filters
+    out[:, 1:] = (r - preds[np.asarray(filters), np.arange(h)]) & 0xFF
+    return out.tobytes()
+
+
+def png_bytes(rows: np.ndarray, width: int, ctype: int, depth: int, filters,
+              palette=None, trns: bytes = None, level: int = 6,
+              interlace: int = 0) -> bytes:
+    """A PNG of raw scanlines `rows` [h, rowbytes] (packed below 8 bits)."""
+    import struct
+    import zlib
+
+    h = rows.shape[0]
+    bpp = max(1, PNG_CHANNELS[ctype] * depth // 8)
+    out = PNG_SIGNATURE + png_chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", width, h, depth, ctype, 0, 0, interlace))
+    if palette is not None:
+        out += png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += png_chunk(b"tRNS", trns)
+    out += png_chunk(b"IDAT", zlib.compress(png_filter(rows, bpp, filters), level))
+    return out + png_chunk(b"IEND", b"")
+
+
+def bmp_bytes(pixels: np.ndarray, palette=None, top_down: bool = False,
+              alpha: np.ndarray = None) -> bytes:
+    """An uncompressed BMP (BITMAPINFOHEADER): [h, w, 3] RGB at 24 bits (32
+    with `alpha` [h, w]), or [h, w] palette indices at 8 bits with
+    `palette` [k, 3] RGB."""
+    import struct
+
+    h, w = pixels.shape[:2]
+    if palette is not None:
+        bits, body = 8, pixels.astype(np.uint8)[:, :, None]
+        table = np.zeros((len(palette), 4), np.uint8)
+        table[:, :3] = np.asarray(palette, np.uint8)[:, ::-1]
+        table = table.tobytes()
+    else:
+        bgr = pixels[..., ::-1].astype(np.uint8)
+        if alpha is not None:
+            bgr = np.concatenate([bgr, alpha.astype(np.uint8)[..., None]], axis=2)
+        bits, body, table = 8 * bgr.shape[2], bgr, b""
+    stride = ((w * bits + 31) >> 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * bits // 8] = body.reshape(h, -1)
+    if not top_down:
+        rows = rows[::-1]
+    offset = 14 + 40 + len(table)
+    header = struct.pack("<2sIHHI", b"BM", offset + rows.size, 0, 0, offset)
+    info = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bits, 0, rows.size,
+                       2835, 2835, len(palette) if palette is not None else 0, 0)
+    return header + info + table + rows.tobytes()
+
+
+# -- near-dup corpus (harness code) ------------------------------------------
+
+NEAR_DUP_THRESHOLD = 10      # the job's DEFAULT_THRESHOLD
+# Encodings of the corpus: every PNG colour type and depth the decoder
+# takes, and the three BMP forms.
+IMAGE_KINDS = ("png_rgb", "png_rgba", "png_gray", "png_la", "png_pal8", "png_pal4",
+               "png_pal2", "png_pal1", "png_gray4", "png_gray2", "png_gray1",
+               "bmp24", "bmp32", "bmp8")
+CORPUS_DIR_FILES = 500
+# 6 x 6 x 6 colour cube: the 8-bit palette of the pal8 and bmp8 kinds.
+CUBE = np.stack(np.meshgrid(*[np.arange(6) * 51] * 3, indexing="ij"), -1).reshape(-1, 3)
+
+
+_NOISE = []  # one pool of standard normals, drawn once (seed 0)
+
+
+def noise_like(rng, shape) -> np.ndarray:
+    """Standard normal float32 noise of `shape`: a window of a fixed pool at
+    an offset drawn from `rng` (cheap enough for thousands of images)."""
+    if not _NOISE:
+        _NOISE.append(np.random.default_rng(0).standard_normal(1 << 22, dtype=np.float32))
+    pool, n = _NOISE[0], int(np.prod(shape))
+    reps = -(-n // len(pool))
+    src = np.tile(pool, reps) if reps > 1 else pool
+    start = int(rng.integers(0, len(src) - n + 1))
+    return src[start:start + n].reshape(shape)
+
+
+def image_scene(rng, h: int, w: int, noise: float = 1.5) -> np.ndarray:
+    """[h, w, 3] float32 scene: a coarse random colour grid upsampled to the
+    image (the structure pHash keeps), plus pixel noise of σ `noise`."""
+    gh, gw = (int(v) for v in rng.integers(3, 13, 2))
+    base = rng.normal(size=(gh, gw, 3))
+    base = ((base - base.min()) / (np.ptp(base) + 1e-9) * 235 + 10).astype(np.float32)
+    img = np.repeat(np.repeat(base, np.bincount(np.arange(h) * gh // h, minlength=gh), axis=0),
+                    np.bincount(np.arange(w) * gw // w, minlength=gw), axis=1)
+    return img + noise_like(rng, img.shape) * np.float32(noise)
+
+
+def encode_image(rng, rgb: np.ndarray, kind: str, filters=None) -> tuple:
+    """(file bytes, extension) of [h, w, 3] uint8 `rgb` as `kind`; PNG rows
+    take `filters` (one 0..4 per row; random when None)."""
+    from spacedrive_tpu_torch.media.imgdecode import l24
+
+    h, w, _ = rgb.shape
+    if filters is None:
+        filters = (rng.integers(0, 5, h) if rng.random() < 0.5
+                   else np.full(h, int(rng.integers(0, 5))))
+    if kind.startswith("bmp"):
+        if kind == "bmp8":
+            idx = (rgb.astype(np.int32) * 6 // 256) @ np.array([36, 6, 1])
+            return bmp_bytes(idx, palette=CUBE), "bmp"
+        alpha = rng.integers(0, 256, (h, w)) if kind == "bmp32" else None
+        return bmp_bytes(rgb, alpha=alpha, top_down=bool(rng.random() < 0.3)), "bmp"
+    luma = l24(rgb)
+    if kind in ("png_rgb", "png_rgba"):
+        px = rgb if kind == "png_rgb" else np.concatenate(
+            [rgb, rng.integers(0, 256, (h, w, 1), dtype=np.uint8)], axis=2)
+        return png_bytes(px.reshape(h, -1), w, 2 if kind == "png_rgb" else 6, 8,
+                         filters, level=1), "png"
+    if kind == "png_gray":
+        return png_bytes(luma, w, 0, 8, filters, level=1), "png"
+    if kind == "png_la":
+        la = np.stack([luma, rng.integers(0, 256, (h, w), dtype=np.uint8)], axis=2)
+        return png_bytes(la.reshape(h, -1), w, 4, 8, filters, level=1), "png"
+    if kind == "png_pal8":
+        idx = ((rgb.astype(np.int32) * 6 // 256) @ np.array([36, 6, 1])).astype(np.uint8)
+        trns = rng.integers(0, 256, len(CUBE)).astype(np.uint8).tobytes() \
+            if rng.random() < 0.3 else None
+        return png_bytes(idx, w, 3, 8, filters, palette=CUBE, trns=trns, level=1), "png"
+    depth = int(kind[-1])
+    levels = luma.astype(np.int32) * (1 << depth) // 256
+    if kind.startswith("png_pal"):
+        ramp = np.arange(1 << depth) * 255 // ((1 << depth) - 1)
+        palette = np.stack([ramp, ramp[::-1], ramp], axis=1)
+        return png_bytes(pack_bits(levels, depth), w, 3, depth, filters,
+                         palette=palette, level=1), "png"
+    return png_bytes(pack_bits(levels, depth), w, 0, depth, filters, level=1), "png"
+
+
+def plain_phash_of(rgb: np.ndarray) -> np.ndarray:
+    """The pHash of [h, w, 3] uint8 pixels by the plain host path (L24, the
+    float64 LANCZOS, the CPU DCT): what any lossless encoding must give."""
+    from spacedrive_tpu_torch.media.imgdecode import l24, resize_lanczos
+    from spacedrive_tpu_torch.ops.phash import phash_torch
+
+    grid = resize_lanczos(l24(rgb)).astype(np.float32)
+    return phash_torch(grid[None], "cpu")[0]
+
+
+def _side(rng, lo_hi) -> int:
+    lo, hi = lo_hi
+    return int(np.exp(rng.uniform(np.log(lo), np.log(hi))))
+
+
+def _corpus_task(root: Path, seed: int, sides, task) -> tuple:
+    """Write one task's files; returns (bytes, planted pairs, redraws)."""
+    kind, k, names = task
+    rng = np.random.default_rng([seed, k, ["group", "single", "refused"].index(kind)])
+    planted, redrawn, total = [], 0, 0
+    if kind == "group":
+        h, w = _side(rng, sides[1]), _side(rng, sides[0])
+        scene = image_scene(rng, h, w)
+        rgb = np.clip(scene, 0, 255).astype(np.uint8)
+        base = plain_phash_of(rgb)
+        members = [(names[0], rgb, "png_rgb", np.zeros(h, np.int64)),
+                   (names[1], rgb, "png_rgb", np.full(h, 4)),
+                   (names[2], rgb, "bmp24", None)]
+        for _ in range(8):
+            sigma = np.float32(rng.uniform(3, 6))
+            noisy = np.clip(scene + noise_like(rng, scene.shape) * sigma, 0, 255).astype(np.uint8)
+            if np.bitwise_count(plain_phash_of(noisy) ^ base).sum() <= NEAR_DUP_THRESHOLD:
+                members.append((names[3], noisy, "png_rgb", None))
+                break
+            redrawn += 1
+        for path, px, enc, filters in members:
+            data = encode_image(rng, px, enc, filters)[0]
+            (root / path).write_bytes(data)
+            total += len(data)
+            if path != names[0]:
+                planted.append(tuple(sorted((names[0], path))))
+    elif kind == "single":
+        enc = IMAGE_KINDS[k % len(IMAGE_KINDS)]
+        h, w = _side(rng, sides[1]), _side(rng, sides[0])
+        px = np.clip(image_scene(rng, h, w), 0, 255).astype(np.uint8)
+        data = encode_image(rng, px, enc)[0]
+        (root / names[0]).write_bytes(data)
+        total = len(data)
+    else:
+        px = np.clip(image_scene(rng, 40, 60), 0, 255).astype(np.uint8)
+        if k % 3 == 0:
+            data = encode_image(rng, px, "png_rgb")[0]
+            data = data[:int(rng.integers(16, len(data) - 20))]
+        elif k % 3 == 1:
+            data = png_bytes(px.reshape(40, -1), 60, 2, 8, np.zeros(40, np.int64),
+                             interlace=1)
+        else:
+            data = rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+        (root / names[0]).write_bytes(data)
+        total = len(data)
+    return total, planted, redrawn
+
+
+def write_image_corpus(root: Path, n_files: int, groups: int, copies: int, refused: int,
+                       seed: int, sides=((48, 800), (48, 600)), executor=None) -> dict:
+    """Write about `n_files` image files under `root`, CORPUS_DIR_FILES to a
+    directory, sides log-uniform in `sides` ((min, max) width, (min, max)
+    height), on `executor`'s workers (in this process when None):
+
+    - `groups` planted near-dup groups: a scene as RGB PNG, the same pixels
+      re-encoded with other row filters (distance 0, other bytes) and as a
+      24-bit BMP (distance 0), and the scene with added noise of σ 3-6,
+      kept where the plain path puts it within the threshold of the
+      original (redrawn up to 8 times, else left out);
+    - `copies` byte-identical copies of other images (one object each);
+    - `refused` files the decoder must refuse: a truncated PNG, an
+      interlaced PNG, a .jpg of random bytes, in turn;
+    - the rest, single images of every kind in IMAGE_KINDS in turn.
+
+    Returns {"planted": [(path, path)], "refused": [path], "files", "bytes",
+    "redrawn"}, paths relative to `root`."""
+    import functools
+
+    counter = [0]
+
+    def name(ext: str) -> str:
+        k = counter[0]
+        counter[0] += 1
+        return f"d{k // CORPUS_DIR_FILES:03d}/img{k:06d}.{ext}"
+
+    tasks = [("group", g, [name("png"), name("png"), name("bmp"), name("png")])
+             for g in range(groups)]
+    singles = n_files - 4 * groups - copies - refused
+    tasks += [("single", k, [name("bmp" if IMAGE_KINDS[k % len(IMAGE_KINDS)][:3] == "bmp"
+                                  else "png")]) for k in range(singles)]
+    tasks += [("refused", k, [name("jpg" if k % 3 == 2 else "png")]) for k in range(refused)]
+    copy_of = {name(t[2][0].rsplit(".", 1)[1]): t[2][0]
+               for t in tasks[groups:groups + copies]}
+    for d in sorted({p.split("/")[0] for t in tasks for p in t[2]} |
+                    {p.split("/")[0] for p in copy_of}):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    work = functools.partial(_corpus_task, root, seed, sides)
+    if executor is not None:
+        results = list(executor.map(work, tasks, chunksize=max(1, len(tasks) // 64)))
+    else:
+        results = [work(t) for t in tasks]
+    total = sum(r[0] for r in results)
+    for dst, src in copy_of.items():
+        data = (root / src).read_bytes()
+        (root / dst).write_bytes(data)
+        total += len(data)
+    planted = [p for r in results for p in r[1]]
+    return {"planted": planted, "refused": sorted(t[2][0] for t in tasks if t[0] == "refused"),
+            "files": len(tasks) + len(planted) + len(copy_of), "bytes": total,
+            "redrawn": sum(r[2] for r in results)}
+
+
+def near_dup_state(lib, root: str, location_id: int = None) -> dict:
+    """What near-dup jobs left in `lib` for the location at `root` (all
+    locations when `location_id` is None): {"hashes": {path: [2] uint32},
+    "pairs": [((path, path), distance)], "errors": [path]}, each object
+    named by its first path (relative to `root`) in sort order."""
+    from spacedrive_tpu_torch.ops.phash import phash_from_bytes
+
+    where, params = ("fp.is_dir = 0", []) if location_id is None else \
+        ("fp.is_dir = 0 AND fp.location_id = ?", [location_id])
+    rows = lib.db.query(
+        "SELECT fp.materialized_path, fp.name, fp.extension, fp.object_id, md.phash "
+        "FROM file_path fp LEFT JOIN media_data md ON md.object_id = fp.object_id "
+        f"WHERE {where}", params)
+    canon, blobs = {}, {}
+    for r in rows:
+        rel = _rel_path("", r)[1:]
+        canon[r["object_id"]] = min(canon.get(r["object_id"], rel), rel)
+        if r["phash"] is not None:
+            blobs[r["object_id"]] = r["phash"]
+    pairs = sorted((tuple(sorted((canon[r["object_a_id"]], canon[r["object_b_id"]]))),
+                    r["distance"]) for r in lib.db.query("SELECT * FROM near_dup_pair")
+                   if r["object_a_id"] in canon and r["object_b_id"] in canon)
+    prefix = root.rstrip("/") + "/"
+    errors = [e.split(": ", 1)[1] for rep in job_reports(lib)
+              if rep.name == "near_dup_detector" for e in rep.errors_text]
+    return {"hashes": {canon[o]: phash_from_bytes(b) for o, b in blobs.items()},
+            "pairs": pairs,
+            "errors": sorted(e[len(prefix):] for e in errors if e.startswith(prefix))}
+
+
+def brute_force_pairs(hashes: dict, threshold: int, block: int = 2048) -> list:
+    """Every pair of `hashes` (path → [W] uint32) within `threshold`, as
+    near_dup_state lists them: numpy XOR + bitwise_count in row blocks."""
+    paths = sorted(hashes)
+    d = np.stack([hashes[p] for p in paths]) if paths else np.zeros((0, 2), np.uint32)
+    out = []
+    for r0 in range(0, len(paths), block):
+        dist = np.bitwise_count(d[r0:r0 + block, None, :] ^ d[None, :, :]).sum(axis=-1)
+        ii, jj = np.nonzero(dist <= threshold)
+        keep = r0 + ii < jj
+        out += [((paths[r0 + i], paths[j]), int(dist[i, j]))
+                for i, j in zip(ii[keep].tolist(), jj[keep].tolist())]
+    return sorted(out)
+
+
+# -- phases 9 and 10: near-dup search -----------------------------------------
+
+NEAR_DUP_A = dict(n_files=10_000, groups=300, copies=100, refused=20)
+NEAR_DUP_B = dict(n_files=2_000, groups=60, copies=20, refused=6)
+PLAIN_DECODE_SAMPLE = 1024
+# Phase 10: the job's ALL_PAIRS_LIMIT, the 1M-digest scale of
+# tools/near_dup_scale.py, and the pyramid's tile.
+SCALE_DIGESTS = (100_000, 1_000_000, 4096)
+CORPUS_PROCESSES = 8
+POPC_PER_SM_CLOCK = 16   # Hopper's POPC rate (CUDA C++ Programming Guide, cc 9.0)
+
+
+@contextlib.contextmanager
+def recording(module, name: str, store: dict):
+    """While open, each call ``module.name(path)`` stores its result in
+    `store` under `path` (a bracket around the decoder: it changes nothing)."""
+    fn = getattr(module, name)
+
+    def recorded(path, *args, **kwargs):
+        out = fn(path, *args, **kwargs)
+        store[path] = out
+        return out
+
+    setattr(module, name, recorded)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def run_near_dup_job(lib, location_id: int, counts: dict, key: str) -> tuple:
+    """NearDupDetectorJob(backend="cuda") on a fresh JobManager, the launch
+    counts reset just before and read just after, every grid the job
+    decodes recorded and CUDA event pairs around each pHash on the card.
+    Returns (wall s, job report, {path: grid}, [pHash device ms per step])."""
+    import asyncio
+
+    from spacedrive_tpu_torch.jobs.manager import JobManager
+    from spacedrive_tpu_torch.objects.dedup import NearDupDetectorJob
+    from spacedrive_tpu_torch.ops import blake3_cuda, hamming_cuda, phash
+
+    async def main():
+        jobs = JobManager()
+        jid = await jobs.ingest(lib, NearDupDetectorJob(location_id=location_id,
+                                                        backend="cuda"))
+        await jobs.wait_idle()
+        return jid
+
+    grids, spans = {}, []
+    with recording(phash, "image_to_grid", grids), device_spans(phash, "phash_bits", spans):
+        torch.cuda.synchronize()
+        blake3_cuda.reset_launches()
+        hamming_cuda.reset_launches()
+        t0 = time.perf_counter()
+        jid = asyncio.run(main())
+        wall = time.perf_counter() - t0
+    counts[key] = {**blake3_cuda.launches, **hamming_cuda.launches}
+    report = next(r for r in job_reports(lib) if r.id == jid)
+    torch.cuda.synchronize()
+    return wall, report, grids, [start.elapsed_time(end) for start, end in spans]
+
+
+def corpus_executor():
+    """CORPUS_PROCESSES worker processes for the corpus writer and the
+    plain decoder, spawned (the parent holds the card)."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        CORPUS_PROCESSES, mp_context=multiprocessing.get_context("spawn"))
+
+
+def plain_grids(paths: list, executor) -> list:
+    """The plain decoder (Python unfilter, numpy L24 and LANCZOS) over
+    `paths` on `executor`'s workers."""
+    import functools
+
+    from spacedrive_tpu_torch.media import imgdecode
+
+    return list(executor.map(functools.partial(imgdecode.image_to_grid, native=False), paths,
+                             chunksize=16))
+
+
+def check_near_dup_location(name: str, root: Path, lib, location_id: int, made: dict,
+                            wall: float, report, grids: dict, phash_device_ms: list,
+                            executor) -> dict:
+    """The checks of one near-dup location; returns its numbers."""
+    from spacedrive_tpu_torch.jobs.report import JobStatus
+    from spacedrive_tpu_torch.ops import phash
+
+    state = near_dup_state(lib, str(root), location_id)
+    require(report.status == JobStatus.COMPLETED_WITH_ERRORS,
+            f"{name}: near-dup job ended {report.status.name}: {report.errors_text[:2]}")
+    require(state["errors"] == made["refused"],
+            f"{name}: job errors {state['errors'][:3]}... != the {len(made['refused'])} "
+            "refused files")
+    decoded = {os.path.relpath(p, root): g for p, g in grids.items() if g is not None}
+    require(len(decoded) == made["files"] - len(made["refused"]) == report.metadata["hashed"],
+            f"{name}: decoded {len(decoded)}, hashed {report.metadata['hashed']}, "
+            f"files {made['files']} - {len(made['refused'])} refused")
+    # Native decode against the plain decoder on a sample; every stored
+    # pHash against the plain (CPU) pHash of its grid, under the tie rule.
+    rng = np.random.default_rng(len(decoded))
+    sample = sorted(rng.choice(sorted(decoded), min(PLAIN_DECODE_SAMPLE, len(decoded)),
+                               replace=False).tolist())
+    t0 = time.perf_counter()
+    plain = plain_grids([str(root / p) for p in sample], executor)
+    plain_decode_s = time.perf_counter() - t0
+    require(all(g is not None and np.array_equal(g, decoded[p]) for p, g in zip(sample, plain)),
+            f"{name}: native grids != the plain decoder's on the sample")
+    paths = sorted(state["hashes"])
+    stored = np.stack([state["hashes"][p] for p in paths])
+    g = np.stack([decoded[p] for p in paths])
+    plain_hashes = phash.phash_torch(g, "cpu")
+    require(phash.agree_under_ties(stored, plain_hashes, g),
+            f"{name}: stored pHashes != the plain pHash beyond the tie rule")
+    ties = int((phash.words_to_bits(stored) != phash.words_to_bits(plain_hashes)).sum())
+    t0 = time.perf_counter()
+    brute = brute_force_pairs(state["hashes"], NEAR_DUP_THRESHOLD)
+    brute_s = time.perf_counter() - t0
+    require(state["pairs"] == brute,
+            f"{name}: {len(state['pairs'])} stored pairs != {len(brute)} brute-force pairs")
+    found = {pair for pair, _ in state["pairs"]}
+    missing = [p for p in made["planted"] if p not in found]
+    require(not missing, f"{name}: planted pairs not found: {missing[:3]}")
+    phase_s = report.metadata["phase_s"]
+    steps = len(phash_device_ms)
+    return dict(files=made["files"], bytes=made["bytes"], objects_hashed=len(paths),
+                refused=len(made["refused"]), planted=len(made["planted"]),
+                redrawn=made["redrawn"], pairs=len(state["pairs"]), job_wall_s=wall,
+                images_per_s=report.metadata["hashed"] / wall, hash_steps=steps,
+                decode_ms_per_image=phase_s["decode"] / len(decoded) * 1e3,
+                decode_s_per_step=phase_s["decode"] / steps,
+                phash_host_s_per_step=phase_s["phash"] / steps,
+                phash_device_ms_per_step=float(np.mean(phash_device_ms)),
+                phash_device_ms_median=float(np.median(phash_device_ms)),
+                phash_device_ms_first=phash_device_ms[0],
+                phash_device_ms_max=float(np.max(phash_device_ms)),
+                db_s_per_step=phase_s["db_hash"] / steps, compare_load_s=phase_s["load"],
+                compare_pairs_s=phase_s["pairs"], compare_db_s=phase_s["db_pairs"],
+                pyramid_s=report.metadata["pyramid_s"], plain_sample=len(sample),
+                plain_decode_s=plain_decode_s, tie_bits_differing=ties,
+                brute_force_s=brute_s)
+
+
+def phase_near_dup_job(workdir: Path, counts: dict) -> dict:
+    """Phase 9: two image locations scanned and searched on the card."""
+    from spacedrive_tpu_torch.library import Libraries
+
+    lib = Libraries(str(workdir / "library")).create("chip-smoke-near-dup")
+    out = {}
+    try:
+        with corpus_executor() as executor:
+            for name, spec, seed in (("A", NEAR_DUP_A, 51), ("B", NEAR_DUP_B, 52)):
+                out[name] = near_dup_location(workdir, lib, name, spec, seed, counts,
+                                              executor)
+    finally:
+        lib.db.close()
+    return out
+
+
+def near_dup_location(workdir: Path, lib, name: str, spec: dict, seed: int, counts: dict,
+                      executor) -> dict:
+    """Write, scan and search one phase 9 location; returns its numbers."""
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    root = workdir / f"images-{name}"
+    t0 = time.perf_counter()
+    made = write_image_corpus(root, seed=seed, executor=executor, **spec)
+    corpus_s = time.perf_counter() - t0
+    location_id = locations.create_location(lib, str(root))
+    scan_wall = run_scan(lib, location_id, counts, f"near_dup_scan_{name}", [])
+    wall, report, grids, phash_ms = run_near_dup_job(lib, location_id, counts,
+                                                     f"near_dup_job_{name}")
+    launches = counts[f"near_dup_job_{name}"][hamming_cuda.NEAR_MASK]
+    out = dict(corpus_write_s=corpus_s, scan_wall_s=scan_wall,
+               hamming_near_mask_launches=launches,
+               **check_near_dup_location(name, root, lib, location_id, made, wall, report,
+                                         grids, phash_ms, executor))
+    # One launch when every digest fits one tile; the pyramid past it.
+    require(launches == (1 if out["objects_hashed"] <= 4096 else 0),
+            f"{name}: {launches} hamming_near_mask launches for {out['objects_hashed']} "
+            "digests")
+    emit(f"near_dup_job_{name}", **out)
+    return out
+
+
+def make_digests(n: int, planted: int, threshold: int, seed: int = 0):
+    """``tools/near_dup_scale.py``'s digests: n random 64-bit digests, with
+    `planted` pairs copied from one row to another and up to `threshold`
+    bits flipped (sources and targets one disjoint sample)."""
+    rng = np.random.default_rng(seed)
+    digests = rng.integers(0, 2**32, size=(n, 2), dtype=np.uint32)
+    both = rng.choice(n, size=2 * planted, replace=False)
+    src, dst = both[:planted], both[planted:]
+    flips = rng.integers(0, threshold + 1, size=len(src))
+    digests[dst] = digests[src]
+    for k in range(len(src)):
+        bits = rng.choice(64, size=flips[k], replace=False)
+        for b in bits:
+            digests[dst[k], b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+    pairs = {(min(a, b), max(a, b)) for a, b in zip(src.tolist(), dst.tolist())}
+    return digests, pairs
+
+
+def tiled_pairs(digests: np.ndarray, threshold: int, tile: int) -> list:
+    """Every (i < j) pair within `threshold` without the pyramid:
+    ``hamming_near_mask`` over each tile pair (j ≥ i) on the card."""
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    d = torch.from_numpy(np.ascontiguousarray(digests).view(np.int32)).cuda()
+    n, out = len(d), []
+    for i0 in range(0, n, tile):
+        for j0 in range(i0, n, tile):
+            mask = hamming_cuda.hamming_near_mask(d[i0:i0 + tile], d[j0:j0 + tile], threshold,
+                                                  i0, j0, n)
+            ii, jj = (t.cpu().numpy() for t in torch.nonzero(mask, as_tuple=True))
+            out += list(zip((ii + i0).tolist(), (jj + j0).tolist()))
+    return sorted(out)
+
+
+def mask_stats(bound: "Bound", n: int, words: int, seed: int) -> dict:
+    """hamming_near_mask against its plain version at [n, words], bit for
+    bit, and both timed on the card; the bound from this shape's work."""
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2**32, size=(n, words), dtype=np.uint32) & np.uint32(0x0F0F0F0F)
+    x = torch.from_numpy(d.view(np.int32)).cuda()
+    threshold = 8 * words  # about half the pairs near: both branches taken
+    got = hamming_cuda.hamming_near_mask(x, x, threshold)
+    want = hamming_cuda.near_mask_plain(x, x, threshold)
+    err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max().item())
+    require(err == 0, f"hamming_near_mask != plain at [{n}, {words}]")
+    ms = time_device(lambda: hamming_cuda.hamming_near_mask(x, x, threshold), reps=50)
+    plain_ms = time_device(lambda: hamming_cuda.near_mask_plain(x, x, threshold), reps=5)
+    popcounts = in_range_pairs(n, n) * words
+    t_ops = popcounts / (bound.sms * POPC_PER_SM_CLOCK * bound.clock_mhz * 1e6) * 1e3
+    nbytes = n * n + 2 * n * words * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes", max_abs_err=err,
+                shape=[n, words], popcounts=popcounts, bytes=nbytes,
+                near_pairs=int(want.sum().item()))
+
+
+def in_range_pairs(n: int, m: int, oi: int = 0, oj: int = 0,
+                   n_valid: Optional[int] = None) -> int:
+    """Pairs of an [n, m] near mask at origin (oi, oj) with gi < gj, both
+    below `n_valid`: the pairs whose popcounts the mask needs (the rest are
+    0 by definition)."""
+    n_valid = max(oi + n, oj + m) if n_valid is None else n_valid
+    gi = np.arange(oi, min(oi + n, n_valid), dtype=np.int64)
+    lo = np.maximum(gi + 1, oj)
+    return int(np.clip(min(oj + m, n_valid) - lo, 0, None).sum())
+
+
+def phase_near_dup_scale(bound: "Bound", n_b: int) -> dict:
+    """Phase 10: the exact search at 100 000 and 1 000 000 digests, the
+    pair budget, and hamming_near_mask against its plain version."""
+    import warnings
+
+    from spacedrive_tpu_torch.ops import hamming
+
+    out = {}
+    n_exact, n_large, tile = SCALE_DIGESTS
+    d, planted = make_digests(n_exact, 1000, NEAR_DUP_THRESHOLD, seed=1)
+    stats = {}
+    t0 = time.perf_counter()
+    pairs = hamming.near_dup_pairs(d, NEAR_DUP_THRESHOLD, tile, stats=stats, device="cuda")
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = tiled_pairs(d, NEAR_DUP_THRESHOLD, tile)
+    check_s = time.perf_counter() - t0
+    require(pairs == want, f"100k: {len(pairs)} pyramid pairs != {len(want)} tiled pairs")
+    require(planted <= set(pairs), "100k: a planted pair is missing")
+    out["digests_exact_limit"] = dict(n=n_exact, wall_s=wall, stage_s=stats["stage_s"], pairs=len(pairs),
+                               tiled_check_s=check_s)
+
+    d, planted = make_digests(n_large, 5000, NEAR_DUP_THRESHOLD, seed=0)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pairs = hamming.near_dup_pairs(d, NEAR_DUP_THRESHOLD, tile, stats=stats, device="cuda")
+    wall = time.perf_counter() - t0
+    got = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+    dist = np.bitwise_count(d[got[:, 0]] ^ d[got[:, 1]]).sum(axis=1)
+    require(bool((dist <= NEAR_DUP_THRESHOLD).all()) and bool((got[:, 0] < got[:, 1]).all()),
+            "1M: a returned pair is past the threshold or not i < j")
+    recall = len(planted & set(pairs)) / len(planted)
+    require(recall == 1.0, f"1M: planted recall {recall}")
+    out["digests_large"] = dict(n=n_large, wall_s=wall, stage_s=stats["stage_s"],
+                                pairs=len(pairs), planted=len(planted), recall=recall,
+                                yardstick_s=2 * n_large**2 * 64 / 989e12)
+
+    # A degenerate cluster past MAX_TOTAL_PAIRS: 3000 equal digests in tile 0.
+    d = make_digests(3 * tile, 0, NEAR_DUP_THRESHOLD, seed=2)[0]
+    d[:3000] = d[0]
+    d[2 * tile + 1] = d[3 * tile - 1]
+    stats = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pairs = hamming.near_dup_pairs(d, NEAR_DUP_THRESHOLD, tile, stats=stats,
+                                       device="cuda")
+    total = len(tiled_pairs(d, NEAR_DUP_THRESHOLD, tile))
+    require(any("truncating" in str(w.message) for w in caught), "no truncation warning")
+    require(stats.get("truncated_pairs", 0) > 0 and (2 * tile + 1, 3 * tile - 1) in pairs
+            and len(pairs) + stats["truncated_pairs"] == total > hamming.MAX_TOTAL_PAIRS
+            >= len(pairs), f"truncation: {stats.get('truncated_pairs')} dropped, "
+            f"{len(pairs)} kept of {total}")
+    out["truncation"] = dict(pairs=total, truncated_pairs=stats["truncated_pairs"],
+                             kept=len(pairs))
+
+    out["mask"] = {f"{n}x{w}": mask_stats(bound, n, w, seed=n + w)
+                   for n, w in ((n_b, 2), (tile, 2), (tile, 8))}
+    emit("near_dup_scale", **out)
+    return out
+
+
 REPLACES = {
     "blake3_chunk_fast": "spacedrive_tpu/ops/blake3_pallas.py:121",
     "blake3_chunk_fast_cvs": "spacedrive_tpu/ops/blake3_pallas.py:121",
@@ -1134,7 +1823,15 @@ REPLACES = {
     "blake3_chunk_windowed_cvs": "spacedrive_tpu/ops/blake3_pallas.py:210",
     # tree_reduce is jnp in the JAX package: no Pallas counterpart.
     "blake3_tree_fold": "spacedrive_tpu/ops/blake3_batch.py:231",
+    # hamming_tile + _near_mask_tile are jnp in the JAX package: no Pallas
+    # counterpart.
+    "hamming_near_mask": "spacedrive_tpu/ops/hamming.py:34 (hamming_tile) + :68 "
+                         "(_near_mask_tile); jnp, no Pallas counterpart",
 }
+SOURCES = {"hamming_near_mask": "spacedrive_tpu_torch/csrc/hamming.cu"}
+# Kernels that must launch on a main path; the rest are parity forms.
+MAIN_PATH = ("blake3_chunk_fast", "blake3_chunk_windowed", "blake3_tree_fold",
+             "hamming_near_mask")
 
 
 def main() -> int:
@@ -1172,18 +1869,23 @@ def main() -> int:
             phase_validate_job(Path(tmp), lib, sums, counts)
         finally:
             lib.db.close()
+    # The near-dup corpora and their library in the system temp dir.
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-near-dup-") as tmp:
+        near_dup = phase_near_dup_job(Path(tmp), counts)
+    scale = phase_near_dup_scale(bound, near_dup["B"]["objects_hashed"])
+    stats["hamming_near_mask"] = scale["mask"][f"{near_dup['B']['objects_hashed']}x2"]
 
     kernels = []
     for name, replaces in REPLACES.items():
-        launches = sum(c[name] for c in counts.values())
-        if name in (blake3_cuda.FAST, blake3_cuda.WINDOWED, blake3_cuda.FOLD):
+        launches = sum(c.get(name, 0) for c in counts.values())
+        if name in MAIN_PATH:
             require(launches > 0, f"{name} never launched on a main path")
         elif launches == 0:
             continue  # a CV form: held against plain above, on no main path
         s = stats[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "spacedrive_tpu_torch/csrc/blake3_chunk.cu",
+            "source": SOURCES.get(name, "spacedrive_tpu_torch/csrc/blake3_chunk.cu"),
             "replaces": replaces, "launches": launches,
             "max_abs_err": s["max_abs_err"], "matches_plain": s["max_abs_err"] == 0,
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

@@ -1,0 +1,218 @@
+// Host kernels of the port's image decoder (media/imgdecode.py).
+//
+// The JAX package decodes images with PIL (spacedrive_tpu/ops/phash.py,
+// image_to_grid); the machine with the card has no PIL, so the port decodes
+// PNG and BMP itself and must give PIL's 32x32 grid bit for bit. Three
+// passes run here, each one loop over the pixels with the interpreter lock
+// released by ctypes for the call:
+//
+// - the PNG row unfilter, whose Average and Paeth filters carry a dependency
+//   from each byte to the one `bpp` bytes before it, so numpy cannot
+//   vectorise them (media/imgdecode.png_unfilter_plain, a Python byte loop,
+//   costs about a second per megapixel);
+// - PIL's RGB -> L conversion (L24, Convert.c rgb2l) over any pixel layout;
+// - PIL's LANCZOS resample of an L image (Resample.c: precompute_coeffs,
+//   normalize_coeffs_8bpc, the 8bpc horizontal then vertical pass), which
+//   touches only each output's taps; the plain version is a float64 matrix
+//   product of the same fixed-point weights (imgdecode.resize_lanczos).
+//
+// Built by ops/_build.py with g++ (-ffp-contract=off, so the weights' double
+// arithmetic rounds as PIL's does) at first use; called through native.py.
+
+#include <cmath>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+constexpr int PRECISION_BITS = 32 - 8 - 2;
+constexpr double LANCZOS_SUPPORT = 3.0;
+
+double sinc_filter(double x) {
+  if (x == 0.0) return 1.0;
+  x = x * M_PI;
+  return std::sin(x) / x;
+}
+
+double lanczos_filter(double x) {
+  if (-LANCZOS_SUPPORT <= x && x < LANCZOS_SUPPORT)
+    return sinc_filter(x) * sinc_filter(x / 3);
+  return 0.0;
+}
+
+// PIL's precompute_coeffs (box = the whole side) + normalize_coeffs_8bpc:
+// per output, its first input and tap count in `bounds`, its fixed-point
+// weights in `kk` (ksize each). Returns ksize.
+int64_t lanczos_coeffs(int64_t in_size, int64_t out_size, std::vector<int64_t>& bounds,
+                       std::vector<int32_t>& kk) {
+  const double scale = (double)in_size / (double)out_size;
+  const double filterscale = scale < 1.0 ? 1.0 : scale;
+  const double support = LANCZOS_SUPPORT * filterscale;
+  const int64_t ksize = (int64_t)std::ceil(support) * 2 + 1;
+  std::vector<double> k(ksize);
+  bounds.assign(out_size * 2, 0);
+  kk.assign(out_size * ksize, 0);
+  for (int64_t xx = 0; xx < out_size; ++xx) {
+    const double center = (xx + 0.5) * scale;
+    const double ss = 1.0 / filterscale;
+    int64_t xmin = (int64_t)(center - support + 0.5);
+    if (xmin < 0) xmin = 0;
+    int64_t xmax = (int64_t)(center + support + 0.5);
+    if (xmax > in_size) xmax = in_size;
+    xmax -= xmin;
+    double ww = 0.0;
+    for (int64_t x = 0; x < xmax; ++x) {
+      const double w = lanczos_filter((x + xmin - center + 0.5) * ss);
+      k[x] = w;
+      ww += w;
+    }
+    for (int64_t x = 0; x < xmax; ++x) {
+      if (ww != 0.0) k[x] /= ww;
+      kk[xx * ksize + x] = k[x] < 0 ? (int32_t)(-0.5 + k[x] * (1 << PRECISION_BITS))
+                                    : (int32_t)(0.5 + k[x] * (1 << PRECISION_BITS));
+    }
+    bounds[xx * 2] = xmin;
+    bounds[xx * 2 + 1] = xmax;
+  }
+  return ksize;
+}
+
+// An 8-bit pixel times a weight of at most ~1.3 * 2^22, summed, stays
+// below 2^31: PIL accumulates in int, and so does this.
+inline uint8_t clip8(int32_t in) {
+  if (in >= (1 << PRECISION_BITS << 8)) return 255;
+  if (in <= 0) return 0;
+  return (uint8_t)(in >> PRECISION_BITS);
+}
+
+inline uint8_t paeth(int a, int b, int c) {
+  const int pa = std::abs(b - c);
+  const int pb = std::abs(a - c);
+  const int pc = std::abs(a + b - 2 * c);
+  if (pa <= pb && pa <= pc) return (uint8_t)a;
+  return (uint8_t)(pb <= pc ? b : c);
+}
+
+}  // namespace
+
+extern "C" {
+
+// `in` holds h rows of 1 + rowbytes bytes (the filter type, then the
+// filtered bytes); `out` receives h rows of rowbytes unfiltered bytes.
+// `bpp` is the PNG's bytes per complete pixel (1 below 8 bits). Returns 0,
+// or 1 + the index of the first row whose filter type is not 0..4.
+int64_t sd_png_unfilter(const uint8_t* in, int64_t h, int64_t rowbytes,
+                        int64_t bpp, uint8_t* out) {
+  const uint8_t* prev = nullptr;
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t kind = in[y * (rowbytes + 1)];
+    const uint8_t* src = in + y * (rowbytes + 1) + 1;
+    uint8_t* cur = out + y * rowbytes;
+    const int64_t lead = bpp < rowbytes ? bpp : rowbytes;
+    switch (kind) {
+      case 0:
+        std::memcpy(cur, src, (size_t)rowbytes);
+        break;
+      case 1:  // Sub
+        std::memcpy(cur, src, (size_t)lead);
+        for (int64_t i = bpp; i < rowbytes; ++i)
+          cur[i] = (uint8_t)(src[i] + cur[i - bpp]);
+        break;
+      case 2:  // Up
+        if (prev == nullptr) {
+          std::memcpy(cur, src, (size_t)rowbytes);
+        } else {
+          for (int64_t i = 0; i < rowbytes; ++i)
+            cur[i] = (uint8_t)(src[i] + prev[i]);
+        }
+        break;
+      case 3:  // Average
+        for (int64_t i = 0; i < rowbytes; ++i) {
+          const int a = i >= bpp ? cur[i - bpp] : 0;
+          const int b = prev != nullptr ? prev[i] : 0;
+          cur[i] = (uint8_t)(src[i] + ((a + b) >> 1));
+        }
+        break;
+      case 4:  // Paeth
+        for (int64_t i = 0; i < rowbytes; ++i) {
+          const int a = i >= bpp ? cur[i - bpp] : 0;
+          const int b = prev != nullptr ? prev[i] : 0;
+          const int c = (prev != nullptr && i >= bpp) ? prev[i - bpp] : 0;
+          cur[i] = (uint8_t)(src[i] + paeth(a, b, c));
+        }
+        break;
+      default:
+        return y + 1;
+    }
+    prev = cur;
+  }
+  return 0;
+}
+
+// PIL's rgb2l over h rows of w pixels: `row_stride` bytes between rows,
+// `pixel_stride` between pixels, R, G and B at byte offsets r, g, b of a
+// pixel. out: [h, w].
+void sd_luma(const uint8_t* in, int64_t h, int64_t w, int64_t row_stride,
+             int64_t pixel_stride, int64_t r, int64_t g, int64_t b, uint8_t* out) {
+  for (int64_t y = 0; y < h; ++y) {
+    const uint8_t* row = in + y * row_stride;
+    uint8_t* dst = out + y * w;
+    for (int64_t x = 0; x < w; ++x) {
+      const uint8_t* px = row + x * pixel_stride;
+      dst[x] = (uint8_t)((px[r] * 19595u + px[g] * 38470u + px[b] * 7471u + 0x8000u) >> 16);
+    }
+  }
+}
+
+// PIL's resize((edge, edge), LANCZOS) of an [h, w] L image into out
+// [edge, edge]: the horizontal pass over the rows the vertical pass reads,
+// rounded and clipped to uint8, then the vertical pass. A side already
+// `edge` long is not resampled.
+void sd_resample_lanczos(const uint8_t* in, int64_t h, int64_t w, int64_t edge,
+                         uint8_t* out) {
+  std::vector<int64_t> bounds_h, bounds_v;
+  std::vector<int32_t> kk_h, kk_v;
+  const int64_t ksize_h = lanczos_coeffs(w, edge, bounds_h, kk_h);
+  const int64_t ksize_v = lanczos_coeffs(h, edge, bounds_v, kk_v);
+  const uint8_t* src = in;
+  int64_t src_w = w;
+  std::vector<uint8_t> tmp;
+  int64_t first = 0;  // the first input row the vertical pass reads
+  if (w != edge) {
+    int64_t last = h;
+    if (h != edge) {
+      first = bounds_v[0];
+      last = bounds_v[edge * 2 - 2] + bounds_v[edge * 2 - 1];
+    }
+    tmp.resize((size_t)((last - first) * edge));
+    for (int64_t y = first; y < last; ++y) {
+      const uint8_t* row = in + y * w;
+      for (int64_t xx = 0; xx < edge; ++xx) {
+        const int64_t xmin = bounds_h[xx * 2], xmax = bounds_h[xx * 2 + 1];
+        const int32_t* k = &kk_h[xx * ksize_h];
+        int32_t ss = 1 << (PRECISION_BITS - 1);
+        for (int64_t x = 0; x < xmax; ++x) ss += (int32_t)row[x + xmin] * k[x];
+        tmp[(y - first) * edge + xx] = clip8(ss);
+      }
+    }
+    src = tmp.data();
+    src_w = edge;
+  }
+  if (h == edge) {
+    std::memcpy(out, src, (size_t)(edge * edge));
+    return;
+  }
+  for (int64_t yy = 0; yy < edge; ++yy) {
+    const int64_t ymin = bounds_v[yy * 2] - first, ymax = bounds_v[yy * 2 + 1];
+    const int32_t* k = &kk_v[yy * ksize_v];
+    for (int64_t xx = 0; xx < src_w; ++xx) {
+      int32_t ss = 1 << (PRECISION_BITS - 1);
+      for (int64_t y = 0; y < ymax; ++y) ss += (int32_t)src[(y + ymin) * src_w + xx] * k[y];
+      out[yy * edge + xx] = clip8(ss);
+    }
+  }
+}
+
+}  // extern "C"

@@ -1,4 +1,5 @@
-"""ctypes bindings to the port's native staging plane (csrc/sdio_stage.cpp).
+"""ctypes bindings to the port's native host code: the staging plane
+(csrc/sdio_stage.cpp) and the PNG unfilter (csrc/imgdec.cpp).
 
 Port of the staging half of ``spacedrive_tpu/native/__init__.py``: batched
 file reads into dense rows by a pool of C++ threads over pread/mmap, with
@@ -133,3 +134,51 @@ def stage_batch(paths: Sequence[str], sizes: np.ndarray, out: np.ndarray,
                            _ptr(msg_lens, ctypes.c_int32),
                            _ptr(status, ctypes.c_int32), _threads(n_threads))
     return msg_lens, status
+
+
+def png_unfilter(raw: bytes, h: int, rowbytes: int, bpp: int) -> np.ndarray:
+    """h filtered PNG rows of 1 + rowbytes bytes (inflated IDAT) →
+    [h, rowbytes] uint8; UnsupportedImage on a filter type past 4. The
+    plain version is ``media.imgdecode.png_unfilter_plain``."""
+    from .media.imgdecode import UnsupportedImage
+
+    src = np.frombuffer(raw, np.uint8)
+    if h < 0 or rowbytes < 1 or bpp < 1 or src.size < h * (rowbytes + 1):
+        raise ValueError(f"png_unfilter: {src.size} bytes cannot hold {h} rows "
+                         f"of 1 + {rowbytes}")
+    out = np.empty((h, rowbytes), np.uint8)
+    bad = _build.library("imgdec").sd_png_unfilter(
+        _ptr(src, ctypes.c_uint8), h, rowbytes, bpp, _ptr(out, ctypes.c_uint8))
+    if bad:
+        raise UnsupportedImage(f"PNG filter type {raw[(bad - 1) * (rowbytes + 1)]} "
+                         f"in row {bad - 1}")
+    return out
+
+
+def luma(pixels: np.ndarray, order: Tuple[int, int, int]) -> np.ndarray:
+    """[h, w, c] uint8 pixels (any strides of whole bytes, c >= 3) → [h, w]
+    uint8 L by PIL's L24, reading R, G and B at channel offsets `order`.
+    The plain version is ``media.imgdecode.l24``."""
+    h, w, c = pixels.shape
+    row_stride, pixel_stride, unit = pixels.strides
+    if unit != 1 or c < 3 or min(order) < 0 or max(order) >= c or row_stride < 0:
+        raise ValueError(f"luma: pixels {pixels.shape} {pixels.strides}, order {order}")
+    out = np.empty((h, w), np.uint8)
+    if h and w:
+        first = ctypes.cast(pixels.ctypes.data, ctypes.POINTER(ctypes.c_uint8))
+        _build.library("imgdec").sd_luma(first, h, w, row_stride, pixel_stride, *order,
+                                         _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def resample_lanczos(l8: np.ndarray, edge: int) -> np.ndarray:
+    """[h, w] uint8 → [edge, edge] uint8, PIL's LANCZOS ``resize``. The
+    plain version is ``media.imgdecode.resize_lanczos``."""
+    l8 = np.ascontiguousarray(l8, dtype=np.uint8)
+    h, w = l8.shape
+    if h < 1 or w < 1 or edge < 1:
+        raise ValueError(f"resample_lanczos: {l8.shape} to {edge}")
+    out = np.empty((edge, edge), np.uint8)
+    _build.library("imgdec").sd_resample_lanczos(
+        _ptr(l8, ctypes.c_uint8), h, w, edge, _ptr(out, ctypes.c_uint8))
+    return out

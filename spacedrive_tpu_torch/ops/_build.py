@@ -4,12 +4,15 @@ Each source in ``csrc/`` has a plain C interface and is compiled on its own
 into a shared library, loaded with ``ctypes``:
 
 - ``csrc/<name>.cu`` by ``nvcc`` for ``sm_90a`` (the CUDA kernels);
-- ``csrc/<name>.cpp`` by ``g++`` (host code: the native staging plane).
+- ``csrc/<name>.cpp`` by ``g++`` (host code: the native staging plane and
+  the PNG unfilter).
 
 The library's name carries a hash of the source and the flags, so an
 edited source is rebuilt and a stale library is never loaded. The flags
 name no host CPU (no ``-march=native``), so a library built on one host is
-right on any other. Builds write a temporary file and ``os.replace`` it
+right on any other, and the host code contracts no floating-point multiply
+and add into one (``-ffp-contract=off``): the image decoder's LANCZOS
+weights round as PIL's do. Builds write a temporary file and ``os.replace`` it
 into place under a per-source file lock, so concurrent processes (xdist
 workers) neither race nor load a half-written library. Libraries and the
 compiler's output (``-Xptxas -v``: registers, spills) land in
@@ -41,7 +44,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
-             "-Wall", "-Wextra")
+             "-ffp-contract=off", "-Wall", "-Wextra")
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -63,6 +66,24 @@ _SIGNATURES = {
              ctypes.c_void_p, ctypes.c_void_p],
             ctypes.c_int),
         "sd_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "hamming": {
+        "sd_hamming_near_mask": (
+            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
+            ctypes.c_int),
+        "sd_hamming_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "imgdec": {
+        "sd_png_unfilter": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p],
+            ctypes.c_int64),
+        "sd_luma": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], None),
+        "sd_resample_lanczos": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], None),
     },
     "sdio_stage": {
         "sd_stage_large": (

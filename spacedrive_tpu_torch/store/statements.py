@@ -1,14 +1,16 @@
-"""The named SQL statements the scan chain runs.
+"""The named SQL statements the scan chain and the near-dup job run.
 
 A subset of ``spacedrive_tpu/store/statements.py``: each statement the
-port's store, sync, library, indexer, identifier and validator execute,
-under the JAX package's name and with its SQL text (whitespace-collapsed,
-as the JAX registry keeps it; ``tests/test_torch_store.py`` holds the two
-texts equal). Call sites hold only the name and run it through
-``Database.run`` / ``run_many`` / ``run_tx``. The JAX registry's contract
-checks (declared tables, the runtime SQL auditor, template shapes) are not
-ported: the port's dynamic SQL is written inline where it runs, as in the
-JAX package.
+port's store, sync, library, indexer, identifier, validator and dedup code
+execute, under the JAX package's name and with its SQL text
+(whitespace-collapsed, as the JAX registry keeps it;
+``tests/test_torch_store.py`` holds the two texts equal). Call sites hold
+only the name and run it through ``Database.run`` / ``run_many`` /
+``run_tx``. A shape (``SHAPES``) is a statement with a ``{w}`` clause
+filled where it runs (``render``). The JAX registry's contract checks
+(declared tables, the runtime SQL auditor, shape matching) are not ported;
+the scan chain's other dynamic SQL is written inline where it runs, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -27,14 +29,24 @@ class Stmt:
 
 
 STATEMENTS: Dict[str, Stmt] = {}
+SHAPES: Dict[str, Stmt] = {}
 
 _WS = re.compile(r"\s+")
 
 
-def _declare(name: str, sql: str, verb: str, cardinality: str = "none") -> None:
-    if name in STATEMENTS:
+def _declare(name: str, sql: str, verb: str, cardinality: str = "none",
+             registry: Dict[str, Stmt] = STATEMENTS) -> None:
+    if name in STATEMENTS or name in SHAPES:
         raise ValueError(f"statement {name!r} declared twice")
-    STATEMENTS[name] = Stmt(name, _WS.sub(" ", sql).strip(), verb, cardinality)
+    registry[name] = Stmt(name, _WS.sub(" ", sql).strip(), verb, cardinality)
+
+
+def render(name: str, where: str) -> str:
+    """The SQL of shape `name` with its ``{w}`` clause filled by `where`."""
+    try:
+        return SHAPES[name].sql.replace("{w}", where)
+    except KeyError:
+        raise KeyError(f"undeclared shape {name!r}") from None
 
 
 def get(name: str) -> Stmt:
@@ -133,3 +145,42 @@ _declare("identifier.cas_map",
 _declare("validator.fill_checksum",
          "UPDATE file_path SET integrity_checksum = ? "
          "WHERE id = ? AND integrity_checksum IS NULL", "write")
+
+# -- dedup (objects/dedup.py) -----------------------------------------------
+_declare("dedup.exact_groups",
+         "SELECT fp.cas_id AS cas_id, COUNT(*) AS n, "
+         "o.pub_id AS object_pub_id "
+         "FROM file_path fp JOIN object o ON o.id = fp.object_id "
+         "WHERE {w} GROUP BY fp.cas_id HAVING n > 1 "
+         "ORDER BY n DESC LIMIT ?", "read", "many", registry=SHAPES)
+_declare("dedup.paths_by_cas",
+         "SELECT materialized_path, name, extension, location_id, "
+         "size_in_bytes_bytes FROM file_path WHERE cas_id = ?", "read", "many")
+_declare("dedup.image_rows",
+         "SELECT fp.id, fp.object_id, fp.materialized_path, fp.name, "
+         "fp.extension, md.phash AS phash "
+         "FROM file_path fp "
+         "LEFT JOIN media_data md ON md.object_id = fp.object_id "
+         "WHERE {w} ORDER BY fp.id", "read", "many", registry=SHAPES)
+_declare("dedup.set_phash",
+         "UPDATE media_data SET phash = ? WHERE object_id = ?", "write")
+_declare("dedup.insert_phash_row",
+         "INSERT OR IGNORE INTO media_data (object_id, phash) VALUES (?, ?)",
+         "write")
+_declare("dedup.phashes_for_location",
+         "SELECT DISTINCT md.object_id AS object_id, md.phash AS phash "
+         "FROM media_data md "
+         "JOIN file_path fp ON fp.object_id = md.object_id "
+         "WHERE md.phash IS NOT NULL AND fp.location_id = ?", "read", "many")
+_declare("dedup.upsert_pair",
+         "INSERT INTO near_dup_pair "
+         "(object_a_id, object_b_id, distance, date_detected) "
+         "VALUES (?, ?, ?, ?) "
+         "ON CONFLICT (object_a_id, object_b_id) "
+         "DO UPDATE SET distance = excluded.distance", "write")
+_declare("dedup.pairs_within",
+         "SELECT * FROM near_dup_pair WHERE distance <= ? "
+         "ORDER BY distance ASC LIMIT ?", "read", "many")
+_declare("dedup.paths_for_object",
+         "SELECT materialized_path, name, extension "
+         "FROM file_path WHERE object_id = ?", "read", "many")

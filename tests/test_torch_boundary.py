@@ -22,9 +22,11 @@ import torch
 
 from spacedrive_tpu_torch.locations import manager as locations
 from spacedrive_tpu_torch.objects import validator
+from spacedrive_tpu_torch.objects.dedup import NearDupDetectorJob
 from spacedrive_tpu_torch.objects.identifier import FileIdentifierJob
 from spacedrive_tpu_torch.ops import blake3_batch as bb
-from spacedrive_tpu_torch.ops import blake3_cuda, blake3_torch, overlap, seqhash, staging
+from spacedrive_tpu_torch.ops import (blake3_cuda, blake3_torch, hamming, hamming_cuda, overlap,
+                                      phash, seqhash, staging)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "spacedrive_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -84,8 +86,11 @@ def test_scan_covers_the_staging_plane_the_ring_and_the_scan_chain():
             port / "ops" / "staging.py", port / "_msgpack.py",
             port / "store" / "db.py", port / "sync" / "manager.py",
             port / "jobs" / "worker.py", port / "locations" / "manager.py",
-            port / "objects" / "identifier.py"} <= set(PORT_FILES)
-    assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp"}
+            port / "objects" / "identifier.py", port / "media" / "imgdecode.py",
+            port / "ops" / "phash.py", port / "ops" / "hamming.py",
+            port / "ops" / "hamming_cuda.py", port / "objects" / "dedup.py"} <= set(PORT_FILES)
+    assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp",
+                                                 "hamming.cu", "imgdec.cpp"}
 
 
 def _foreign_includes(path: Path, text: str):
@@ -134,11 +139,17 @@ def _grid():
     lambda: validator.ObjectValidatorJob(location_id=1),
     lambda: asyncio.run(locations.scan_location(None, None, 1)),
     lambda: asyncio.run(locations.scan_location_sub_path(None, None, 1, "a")),
+    lambda: phash.phash_torch(np.zeros((1, 32, 32), np.float32)),
+    lambda: phash.phash_files(["/nonexistent.png"]),
+    lambda: hamming.near_dup_pairs(np.zeros((3, 2), np.uint32), 1),
+    lambda: hamming.near_dup_pairs_device(np.zeros((3, 2), np.uint32), 1),
+    lambda: NearDupDetectorJob(location_id=1),
 ], ids=["blake3_words", "words_to_device", "cas_ids", "checksums",
         "cas_ids_for_files", "validator", "streaming", "stage_batch_native",
         "cas_pool", "run_overlapped", "words_to_device_non_blocking",
         "file_identifier_job", "file_identifier_job_batch", "object_validator_job",
-        "scan_location", "scan_location_sub_path"])
+        "scan_location", "scan_location_sub_path", "phash_torch", "phash_files",
+        "near_dup_pairs", "near_dup_pairs_device", "near_dup_detector_job"])
 def test_cuda_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -162,6 +173,11 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
         blake3_cuda.FAST, blake3_cuda.WINDOWED, blake3_cuda.FOLD,
         blake3_cuda.FAST_CVS, blake3_cuda.WINDOWED_CVS}
     assert all(n == 0 for n in blake3_cuda.launches.values())
+    d = torch.zeros((3, 2), dtype=torch.int32)
+    hamming_cuda.reset_launches()
+    assert torch.equal(hamming_cuda.hamming_near_mask(d, d, 0),
+                       hamming_cuda.near_mask_plain(d, d, 0))
+    assert hamming_cuda.launches == {hamming_cuda.NEAR_MASK: 0}
 
 
 def test_wrappers_refuse_malformed_inputs():
@@ -176,3 +192,8 @@ def test_wrappers_refuse_malformed_inputs():
         blake3_cuda.window_top(words, lengths, 0)  # two windows
     with pytest.raises(ValueError):
         blake3_cuda.window_top(words[:1], lengths[:1], np.array([0, 1], np.uint64))
+    d = torch.zeros((3, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        hamming_cuda.hamming_near_mask(d.to(torch.int64), d, 0)
+    with pytest.raises(ValueError):
+        hamming_cuda.hamming_near_mask(d, torch.zeros((3, 3), dtype=torch.int32), 0)

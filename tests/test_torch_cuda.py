@@ -241,3 +241,139 @@ def test_scan_location_on_the_card_matches_plain(cuda, tmp_path, device_batch):
     assert sum(launches.values()) == launches[blake3_cuda.FAST]
     assert meta["pool"]["in_use_after_hash"] == meta["pool"]["in_use_at_end"] == 0
     assert meta["pool"]["pinned_bytes"] > 0
+
+
+# -- near-dup search: the Hamming kernel, pHash, the pyramid, the job --------
+
+
+def _digests(seed, n, words, planted=0):
+    """Random [n, words] uint32 digests; `planted` rows copy an earlier row
+    with 0..6 bits flipped."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2**32, size=(n, words), dtype=np.uint32)
+    for k in range(planted):
+        i, j = k, n // 2 + k
+        d[j] = d[i]
+        for b in rng.choice(32 * words, size=int(rng.integers(0, 7)), replace=False):
+            d[j, b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+    return d
+
+
+def _brute_pairs(d, threshold):
+    dist = np.bitwise_count(d[:, None, :] ^ d[None, :, :]).sum(axis=-1)
+    ii, jj = np.nonzero(np.triu(dist <= threshold, k=1))
+    return list(zip(ii.tolist(), jj.tolist()))
+
+
+@pytest.mark.parametrize("n,m,words,oi,oj,n_valid", [
+    (4096, 4096, 2, 0, 0, None), (4096, 4096, 8, 0, 0, None), (37, 1001, 3, 5, 0, 900),
+    (1, 1, 1, 0, 0, None), (130, 66, 8, 4000, 4096, 4150), (64, 4097, 2, 0, 64, 3000),
+    (50, 90, 2, 30, 0, 60), (64, 100, 2, 500, 0, None)])
+def test_hamming_near_mask_matches_plain(cuda, n, m, words, oi, oj, n_valid):
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    rng = np.random.default_rng(n + m + words)
+    # Low-entropy words: about half the pairs fall under a threshold of 8·W.
+    x = rng.integers(0, 2**32, (n, words), dtype=np.uint32) & np.uint32(0x0F0F0F0F)
+    y = rng.integers(0, 2**32, (m, words), dtype=np.uint32) & np.uint32(0x0F0F0F0F)
+    xt = torch.from_numpy(x.view(np.int32)).to(cuda)
+    yt = torch.from_numpy(y.view(np.int32)).to(cuda)
+    hamming_cuda.reset_launches()
+    got = hamming_cuda.hamming_near_mask(xt, yt, 8 * words, oi, oj, n_valid)
+    assert hamming_cuda.launches[hamming_cuda.NEAR_MASK] == 1
+    want = hamming_cuda.near_mask_plain(xt, yt, 8 * words, oi, oj, n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # Every case but a single pair and a block wholly below the diagonal
+    # holds near pairs.
+    assert int(want.sum()) > 0 or n * m == 1 or oi >= oj + m - 1
+
+
+def test_hamming_near_mask_refuses_what_the_kernel_cannot_take(cuda):
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    wide = torch.zeros((4, 9), dtype=torch.int32, device=cuda)
+    hamming_cuda.reset_launches()
+    with pytest.raises(ValueError):
+        hamming_cuda.hamming_near_mask(wide, wide, 3)
+    assert hamming_cuda.launches[hamming_cuda.NEAR_MASK] == 0
+
+
+def test_phash_on_the_card_matches_plain_under_ties(cuda):
+    from spacedrive_tpu_torch.ops import phash
+
+    rng = np.random.default_rng(3)
+    grids = rng.integers(0, 256, (513, 32, 32)).astype(np.float32)
+    grids[:256] = np.round(grids[:256] / 64) * 64  # coarse grids: many ties
+    got = phash.phash_torch(grids, cuda)
+    want = phash.phash_torch(grids, "cpu")
+    assert phash.agree_under_ties(got, want, grids)
+
+
+@pytest.mark.parametrize("case", ["planted", "dense", "one_tile"])
+def test_near_dup_pairs_on_the_card_match_plain(cuda, case):
+    from spacedrive_tpu_torch.ops import hamming, hamming_cuda
+
+    if case == "planted":
+        d, tile = _digests(9, 700, 2, planted=20), 256
+    elif case == "dense":
+        d, tile = _digests(12, 600, 2), 256
+        d[0:80] = d[0]
+        d[300] = d[550]
+    else:
+        d, tile = _digests(4, 3000, 2, planted=40), 4096
+    hamming_cuda.reset_launches()
+    stats = {}
+    got = hamming.near_dup_pairs(d, 10, tile=tile, stats=stats, device=cuda)
+    assert hamming_cuda.launches[hamming_cuda.NEAR_MASK] == (case == "one_tile")
+    assert got == hamming.near_dup_pairs(d, 10, tile=tile, device="cpu") == _brute_pairs(d, 10)
+
+
+def test_pair_budget_truncates_on_the_card(cuda, monkeypatch):
+    from spacedrive_tpu_torch.ops import hamming
+
+    d = _digests(13, 600, 2)
+    d[0:500] = d[0]
+    d[520] = d[550]
+    monkeypatch.setattr(hamming, "MAX_TOTAL_PAIRS", 1000)
+    stats = {}
+    with pytest.warns(RuntimeWarning, match="truncating"):
+        got = hamming.near_dup_pairs_device(d, 0, tile=256, stats=stats, device=cuda)
+    assert got == hamming.near_dup_pairs_device(d, 0, tile=256, device="cpu")
+    assert (520, 550) in got and len(got) <= 1000 and stats["truncated_pairs"] > 0
+
+
+def test_near_dup_job_on_the_card_matches_plain(cuda, tmp_path):
+    import chip_smoke
+    from spacedrive_tpu_torch.jobs.manager import JobManager
+    from spacedrive_tpu_torch.objects.dedup import NearDupDetectorJob
+    from spacedrive_tpu_torch.ops import hamming_cuda, phash
+
+    root = tmp_path / "images"
+    planted = chip_smoke.write_image_corpus(root, 60, groups=8, copies=3, refused=2, seed=5,
+                                            sides=((24, 200), (24, 160)))["planted"]
+    results = {}
+    for backend in ("cuda", "plain"):
+        lib, _ = _scan(tmp_path / backend, root, backend)
+        loc = lib.db.query_one("SELECT id FROM location")["id"]
+
+        async def main():
+            jobs = JobManager()
+            jid = await jobs.ingest(lib, NearDupDetectorJob(location_id=loc, backend=backend))
+            await jobs.wait_idle()
+            return jid
+
+        hamming_cuda.reset_launches()
+        asyncio.run(main())
+        if backend == "cuda":
+            assert hamming_cuda.launches[hamming_cuda.NEAR_MASK] == 1
+        results[backend] = chip_smoke.near_dup_state(lib, str(root))
+    cuda_state, plain_state = results["cuda"], results["plain"]
+    assert cuda_state["errors"] == plain_state["errors"] and len(cuda_state["errors"]) == 2
+    paths = sorted(cuda_state["hashes"])
+    assert paths == sorted(plain_state["hashes"])
+    grids = np.stack([phash.image_to_grid(str(root / p)) for p in paths])
+    assert phash.agree_under_ties(np.stack([cuda_state["hashes"][p] for p in paths]),
+                                  np.stack([plain_state["hashes"][p] for p in paths]), grids)
+    assert cuda_state["pairs"] == chip_smoke.brute_force_pairs(cuda_state["hashes"], 10)
+    assert set(planted) <= {pair for pair, _ in cuda_state["pairs"]}

@@ -118,6 +118,16 @@ def test_each_statement_is_the_jax_packages(name):
     assert mine.cardinality == theirs.cardinality
 
 
+@pytest.mark.parametrize("name", sorted(statements.SHAPES))
+def test_each_shape_is_the_jax_packages(name):
+    mine, theirs = statements.SHAPES[name], jax_statements.SHAPES[name]
+    assert mine.sql == theirs.sql
+    assert mine.verb == theirs.verb
+    assert mine.cardinality == theirs.cardinality
+    assert statements.render(name, "fp.location_id = ?") == \
+        theirs.sql.replace("{w}", "fp.location_id = ?")
+
+
 def test_write_tx_nests_as_a_savepoint_and_rolls_back_alone(tmp_path):
     db = port_db.Database(tmp_path / "lib.db")
     try:

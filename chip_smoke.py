@@ -60,25 +60,32 @@ with CUDA events. Phases:
    the decoder must refuse), and B, about 2 000. Each is scanned with
    ``scan_location(backend="cuda")``, then ``NearDupDetectorJob(backend=
    "cuda")`` decodes on the host, pHashes 256-image steps on the card and
-   runs the exact pairs search: the pyramid at A's ~9 900 digests, one
-   ``hamming_near_mask`` launch at B's ~1 950. Checked: the job's errors are
+   runs the exact pairs search: the pyramid (``hamming_near_counts``
+   launches) at A's ~9 900 digests, one ``hamming_near_mask`` launch at B's
+   ~1 950. Checked: the job's errors are
    exactly the refused files; the native grids equal the plain decoder's on
    a 1024-file sample and every stored pHash the plain pHash of its grid
    (under the tie rule); the stored pairs equal a numpy brute force,
    distances included; every planted pair is found;
-10. near-dup at scale — ``near_dup_pairs(device="cuda")`` at 100 000
+10. near-dup at scale — ``near_dup_pairs(device="cuda")`` (each call a
+   main path: the count form's sweep, refinement and leaves) at 100 000
    digests against ``hamming_near_mask`` tiled over the card, at 1 000 000
    with 5 000 planted pairs (recall 1, every distance re-checked on the
-   host), a degenerate cluster past ``MAX_TOTAL_PAIRS`` (the warning, the
-   count dropped), and ``hamming_near_mask`` against its plain version bit
-   for bit at B's shape, [4096, 2] and [4096, 8], timed;
-11. the kernel table as one JSON line, launches summed over phases 4-9.
+   host), the stage table of both, a degenerate cluster past
+   ``MAX_TOTAL_PAIRS`` (the warning, the count dropped, the pairs kept and
+   dropped equal to the plain pyramid's on the CPU);
+   ``hamming_near_counts`` against its plain version bit for bit at the
+   sweep's shape (64 blocks of 4096 rows, g = 16) and the refinement's
+   (4096 blocks of 256, g = 16), and ``hamming_near_mask`` at B's shape,
+   [4096, 2] and [4096, 8], each timed beside its bound (tensor, compare
+   and byte terms) and one ±1 fp16 ``torch.matmul`` of the same planes;
+11. the kernel table as one JSON line, launches summed over phases 4-10.
 
 Launch counts are reset just before each main path (phases 4 and 5, each
-ring run of phase 6, the scans of phases 7, 8 and 9, each validator job
-and each near-dup job) and read just after; launches made to compare or
-time a kernel are not counted. Every failure raises, so the exit code is 0 only if every phase
-passed. The last line is ``{"ok": true, "device": {...}}``.
+ring run of phase 6, the scans of phases 7, 8 and 9, each validator job,
+each near-dup job and each search of phase 10) and read just after;
+launches made to compare or time a kernel are not counted. Every failure
+raises, so the exit code is 0 only if every phase passed. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1505,7 +1512,16 @@ PLAIN_DECODE_SAMPLE = 1024
 # tools/near_dup_scale.py, and the pyramid's tile.
 SCALE_DIGESTS = (100_000, 1_000_000, 4096)
 CORPUS_PROCESSES = 8
-POPC_PER_SM_CLOCK = 16   # Hopper's POPC rate (CUDA C++ Programming Guide, cc 9.0)
+# The Hamming kernels' bound: each in-range pair costs 32W x 2 s8 tensor
+# operations (dense int8: 8192 a SM a clock, the data sheet's 1979 TOPS
+# over 132 SMs at 1830 MHz) and a compare and a count on the CUDA cores
+# (ISSUE_LANES a SM a clock), both terms at the SMs' max clock.
+INT8_OPS_PER_SM_CLOCK = 8192
+COMPARE_OPS_PER_PAIR = 2
+# Count form timing shapes: the 1M sweep's blocks (4096 rows, g = 16; 64
+# tile pairs of the 100 000-digest grid in the sweep's order) and its
+# refinement's (256 rows, g = 16; 4096 blocks).
+COUNT_SHAPES = {"sweep": (4096, 16, 64), "refine": (256, 16, 4096)}
 
 
 @contextlib.contextmanager
@@ -1672,14 +1688,18 @@ def near_dup_location(workdir: Path, lib, name: str, spec: dict, seed: int, coun
     wall, report, grids, phash_ms = run_near_dup_job(lib, location_id, counts,
                                                      f"near_dup_job_{name}")
     launches = counts[f"near_dup_job_{name}"][hamming_cuda.NEAR_MASK]
+    count_launches = counts[f"near_dup_job_{name}"][hamming_cuda.NEAR_COUNTS]
     out = dict(corpus_write_s=corpus_s, scan_wall_s=scan_wall,
                hamming_near_mask_launches=launches,
+               hamming_near_counts_launches=count_launches,
                **check_near_dup_location(name, root, lib, location_id, made, wall, report,
                                          grids, phash_ms, executor))
-    # One launch when every digest fits one tile; the pyramid past it.
-    require(launches == (1 if out["objects_hashed"] <= 4096 else 0),
-            f"{name}: {launches} hamming_near_mask launches for {out['objects_hashed']} "
-            "digests")
+    # One mask launch when every digest fits one tile; the pyramid's count
+    # launches past it.
+    one_tile = out["objects_hashed"] <= 4096
+    require(launches == int(one_tile) and (count_launches == 0) == one_tile,
+            f"{name}: {launches} hamming_near_mask and {count_launches} hamming_near_counts "
+            f"launches for {out['objects_hashed']} digests")
     emit(f"near_dup_job_{name}", **out)
     return out
 
@@ -1718,9 +1738,34 @@ def tiled_pairs(digests: np.ndarray, threshold: int, tile: int) -> list:
     return sorted(out)
 
 
+def hamming_bound(bound: "Bound", pairs: int, words: int, nbytes: int) -> dict:
+    """Least time for `pairs` in-range pairs at W words and `nbytes` moved:
+    the largest of the tensor, compare and byte terms."""
+    clock = bound.sms * bound.clock_mhz * 1e6
+    terms = dict(tensor_ms=pairs * 32 * words * 2 / (clock * INT8_OPS_PER_SM_CLOCK) * 1e3,
+                 compare_ms=pairs * COMPARE_OPS_PER_PAIR / (clock * ISSUE_LANES) * 1e3,
+                 bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    ops = max(terms["tensor_ms"], terms["compare_ms"])
+    return dict(bound_ms=max(ops, terms["bytes_ms"]),
+                bound_by="operations" if ops >= terms["bytes_ms"] else "bytes",
+                bound_terms=terms, in_range_pairs=pairs, bytes=nbytes)
+
+
+def plane_product(x: torch.Tensor, y: torch.Tensor):
+    """The library yardstick: one ±1 fp16 ``torch.matmul`` of the planes,
+    the product a matmul-based search pays before any compare (x [..., n,
+    W], y [..., m, W] int32 words)."""
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    xp = hamming_cuda.bit_planes(x, torch.float16)
+    yp = hamming_cuda.bit_planes(y, torch.float16).transpose(-1, -2)
+    return lambda: torch.matmul(xp, yp)
+
+
 def mask_stats(bound: "Bound", n: int, words: int, seed: int) -> dict:
     """hamming_near_mask against its plain version at [n, words], bit for
-    bit, and both timed on the card; the bound from this shape's work."""
+    bit, and both timed on the card beside one fp16 product of the planes;
+    the bound from this shape's work."""
     from spacedrive_tpu_torch.ops import hamming_cuda
 
     rng = np.random.default_rng(seed)
@@ -1733,30 +1778,76 @@ def mask_stats(bound: "Bound", n: int, words: int, seed: int) -> dict:
     require(err == 0, f"hamming_near_mask != plain at [{n}, {words}]")
     ms = time_device(lambda: hamming_cuda.hamming_near_mask(x, x, threshold), reps=50)
     plain_ms = time_device(lambda: hamming_cuda.near_mask_plain(x, x, threshold), reps=5)
-    popcounts = in_range_pairs(n, n) * words
-    t_ops = popcounts / (bound.sms * POPC_PER_SM_CLOCK * bound.clock_mhz * 1e6) * 1e3
-    nbytes = n * n + 2 * n * words * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes", max_abs_err=err,
-                shape=[n, words], popcounts=popcounts, bytes=nbytes,
-                near_pairs=int(want.sum().item()))
+    library_ms = time_device(plane_product(x, x), reps=20)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err,
+                shape=[n, words], near_pairs=int(want.sum().item()),
+                **hamming_bound(bound, in_range_pairs(n, n), words, n * n + 2 * n * words * 4))
+
+
+def count_stats(bound: "Bound", d: np.ndarray, form: str) -> dict:
+    """hamming_near_counts against its plain version, bit for bit, at a
+    COUNT_SHAPES shape over the digests d (threshold NEAR_DUP_THRESHOLD),
+    both timed beside one fp16 product of the blocks' planes."""
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    size, g, F = COUNT_SHAPES[form]
+    n = len(d) // size * size
+    words = torch.from_numpy(np.ascontiguousarray(d[:n]).view(np.int32)).cuda()
+    if form == "sweep":
+        iu, ju = np.triu_indices(n // size)
+        blocks = np.stack([iu, ju], 1)[:F]
+    else:  # diagonal blocks and random blocks above the diagonal
+        rng = np.random.default_rng(F)
+        b = np.sort(rng.integers(0, n // size, (F, 2)), axis=1)
+        b[:F // 8, 1] = b[:F // 8, 0]
+        blocks = b
+    origins = blocks.astype(np.int64) * size
+    t = NEAR_DUP_THRESHOLD
+    got = hamming_cuda.hamming_near_counts(words, origins, size, g, t, n)
+    want = hamming_cuda.near_counts_plain(words, origins, size, g, t, n)
+    err = int((got - want).abs().max().item())
+    require(err == 0, f"hamming_near_counts != plain at the {form} shape")
+    ms = time_device(lambda: hamming_cuda.hamming_near_counts(words, origins, size, g, t, n),
+                     reps=20)
+    plain_ms = time_device(lambda: hamming_cuda.near_counts_plain(words, origins, size, g, t, n),
+                           reps=3)
+    ar = torch.arange(size, device="cuda")
+    o = torch.from_numpy(origins).cuda()
+    library_ms = time_device(plane_product(words[o[:, :1] + ar], words[o[:, 1:] + ar]), reps=5)
+    pairs = sum(in_range_pairs(size, size, int(i), int(j), n) for i, j in origins)
+    rows = len(np.unique(blocks)) * size
+    nbytes = rows * 2 * 4 + origins.nbytes + F * g * g * 4
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err,
+                shape=[F, size, size, g], near_pairs=int(want.sum().item()),
+                **hamming_bound(bound, pairs, 2, nbytes))
 
 
 def in_range_pairs(n: int, m: int, oi: int = 0, oj: int = 0,
                    n_valid: Optional[int] = None) -> int:
     """Pairs of an [n, m] near mask at origin (oi, oj) with gi < gj, both
-    below `n_valid`: the pairs whose popcounts the mask needs (the rest are
-    0 by definition)."""
+    below `n_valid`: the pairs whose products the kernels need (the rest
+    are 0 by definition)."""
     n_valid = max(oi + n, oj + m) if n_valid is None else n_valid
     gi = np.arange(oi, min(oi + n, n_valid), dtype=np.int64)
     lo = np.maximum(gi + 1, oj)
     return int(np.clip(min(oj + m, n_valid) - lo, 0, None).sum())
 
 
-def phase_near_dup_scale(bound: "Bound", n_b: int) -> dict:
+def counted_pairs(d: np.ndarray, tile: int, counts: dict, key: str, stats: dict) -> list:
+    """near_dup_pairs(device="cuda") as a main path: the launch counts reset
+    just before and read just after."""
+    from spacedrive_tpu_torch.ops import hamming, hamming_cuda
+
+    torch.cuda.synchronize()
+    hamming_cuda.reset_launches()
+    pairs = hamming.near_dup_pairs(d, NEAR_DUP_THRESHOLD, tile, stats=stats, device="cuda")
+    counts[key] = dict(hamming_cuda.launches)
+    return pairs
+
+
+def phase_near_dup_scale(bound: "Bound", n_b: int, counts: dict) -> dict:
     """Phase 10: the exact search at 100 000 and 1 000 000 digests, the
-    pair budget, and hamming_near_mask against its plain version."""
+    pair budget, and both Hamming forms against their plain versions."""
     import warnings
 
     from spacedrive_tpu_torch.ops import hamming
@@ -1766,21 +1857,21 @@ def phase_near_dup_scale(bound: "Bound", n_b: int) -> dict:
     d, planted = make_digests(n_exact, 1000, NEAR_DUP_THRESHOLD, seed=1)
     stats = {}
     t0 = time.perf_counter()
-    pairs = hamming.near_dup_pairs(d, NEAR_DUP_THRESHOLD, tile, stats=stats, device="cuda")
+    pairs = counted_pairs(d, tile, counts, "scale_100k", stats)
     wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     want = tiled_pairs(d, NEAR_DUP_THRESHOLD, tile)
     check_s = time.perf_counter() - t0
     require(pairs == want, f"100k: {len(pairs)} pyramid pairs != {len(want)} tiled pairs")
     require(planted <= set(pairs), "100k: a planted pair is missing")
-    out["digests_exact_limit"] = dict(n=n_exact, wall_s=wall, stage_s=stats["stage_s"], pairs=len(pairs),
-                               tiled_check_s=check_s)
+    out["digests_exact_limit"] = dict(n=n_exact, wall_s=wall, stage_s=stats["stage_s"],
+                                      pairs=len(pairs), tiled_check_s=check_s)
+    out["counts"] = {form: count_stats(bound, d, form) for form in COUNT_SHAPES}
 
     d, planted = make_digests(n_large, 5000, NEAR_DUP_THRESHOLD, seed=0)
     stats = {}
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pairs = hamming.near_dup_pairs(d, NEAR_DUP_THRESHOLD, tile, stats=stats, device="cuda")
+    pairs = counted_pairs(d, tile, counts, "scale_1m", stats)
     wall = time.perf_counter() - t0
     got = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
     dist = np.bitwise_count(d[got[:, 0]] ^ d[got[:, 1]]).sum(axis=1)
@@ -1791,18 +1882,26 @@ def phase_near_dup_scale(bound: "Bound", n_b: int) -> dict:
     out["digests_large"] = dict(n=n_large, wall_s=wall, stage_s=stats["stage_s"],
                                 pairs=len(pairs), planted=len(planted), recall=recall,
                                 yardstick_s=2 * n_large**2 * 64 / 989e12)
+    emit("pyramid_stages", **{f"{n}": {"wall_s": r["wall_s"], **r["stage_s"]} for n, r in (
+        (n_exact, out["digests_exact_limit"]), (n_large, out["digests_large"]))})
 
-    # A degenerate cluster past MAX_TOTAL_PAIRS: 3000 equal digests in tile 0.
+    # A degenerate cluster past MAX_TOTAL_PAIRS: 3000 equal digests in tile 0,
+    # against the plain pyramid on the CPU (same tiles kept and dropped).
     d = make_digests(3 * tile, 0, NEAR_DUP_THRESHOLD, seed=2)[0]
     d[:3000] = d[0]
     d[2 * tile + 1] = d[3 * tile - 1]
-    stats = {}
+    stats, plain_stats = {}, {}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        pairs = hamming.near_dup_pairs(d, NEAR_DUP_THRESHOLD, tile, stats=stats,
-                                       device="cuda")
+        pairs = counted_pairs(d, tile, counts, "truncation", stats)
+        plain = hamming.near_dup_pairs(d, NEAR_DUP_THRESHOLD, tile, stats=plain_stats,
+                                       device="cpu")
     total = len(tiled_pairs(d, NEAR_DUP_THRESHOLD, tile))
     require(any("truncating" in str(w.message) for w in caught), "no truncation warning")
+    require(pairs == plain and stats.get("truncated_pairs") == plain_stats["truncated_pairs"],
+            f"truncation: the card kept {len(pairs)} pairs, dropped "
+            f"{stats.get('truncated_pairs')}; the plain pyramid {len(plain)}, "
+            f"{plain_stats['truncated_pairs']}")
     require(stats.get("truncated_pairs", 0) > 0 and (2 * tile + 1, 3 * tile - 1) in pairs
             and len(pairs) + stats["truncated_pairs"] == total > hamming.MAX_TOTAL_PAIRS
             >= len(pairs), f"truncation: {stats.get('truncated_pairs')} dropped, "
@@ -1823,15 +1922,18 @@ REPLACES = {
     "blake3_chunk_windowed_cvs": "spacedrive_tpu/ops/blake3_pallas.py:210",
     # tree_reduce is jnp in the JAX package: no Pallas counterpart.
     "blake3_tree_fold": "spacedrive_tpu/ops/blake3_batch.py:231",
-    # hamming_tile + _near_mask_tile are jnp in the JAX package: no Pallas
-    # counterpart.
+    # hamming_tile + _near_mask_tile and the pyramid's sweep and refinement
+    # are jnp in the JAX package: no Pallas counterpart.
     "hamming_near_mask": "spacedrive_tpu/ops/hamming.py:34 (hamming_tile) + :68 "
                          "(_near_mask_tile); jnp, no Pallas counterpart",
+    "hamming_near_counts": "spacedrive_tpu/ops/hamming.py:260 (_tile_counts_block) + :290 "
+                           "(_refine_body); jnp, no Pallas counterpart",
 }
-SOURCES = {"hamming_near_mask": "spacedrive_tpu_torch/csrc/hamming.cu"}
+SOURCES = {"hamming_near_mask": "spacedrive_tpu_torch/csrc/hamming.cu",
+           "hamming_near_counts": "spacedrive_tpu_torch/csrc/hamming.cu"}
 # Kernels that must launch on a main path; the rest are parity forms.
 MAIN_PATH = ("blake3_chunk_fast", "blake3_chunk_windowed", "blake3_tree_fold",
-             "hamming_near_mask")
+             "hamming_near_mask", "hamming_near_counts")
 
 
 def main() -> int:
@@ -1872,8 +1974,9 @@ def main() -> int:
     # The near-dup corpora and their library in the system temp dir.
     with tempfile.TemporaryDirectory(prefix="chip-smoke-near-dup-") as tmp:
         near_dup = phase_near_dup_job(Path(tmp), counts)
-    scale = phase_near_dup_scale(bound, near_dup["B"]["objects_hashed"])
+    scale = phase_near_dup_scale(bound, near_dup["B"]["objects_hashed"], counts)
     stats["hamming_near_mask"] = scale["mask"][f"{near_dup['B']['objects_hashed']}x2"]
+    stats["hamming_near_counts"] = scale["counts"]["sweep"]
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -1889,7 +1992,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": s["max_abs_err"], "matches_plain": s["max_abs_err"] == 0,
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None, "shape": s["shape"],
+            "bound_by": s["bound_by"], "library_ms": s.get("library_ms"), "shape": s["shape"],
         })
     emit("forms", **{name: stats[name] for name in REPLACES})
     emit("done", seconds=time.perf_counter() - t_all, launches_by_path=counts)

@@ -118,23 +118,41 @@ def _check_size(w: int, h: int) -> None:
 # -- PNG ---------------------------------------------------------------------
 
 
+def _unknown_critical(ctype: bytes) -> bool:
+    return not ctype[0] & 0x20 and ctype not in (b"IHDR", b"PLTE", b"IDAT", b"IEND")
+
+
 def _png_chunks(data: bytes):
-    """(type, payload) of each chunk up to IEND, CRCs checked."""
-    pos = len(PNG_SIGNATURE)
-    while True:
-        if pos + 8 > len(data):
-            raise UnsupportedImage("truncated PNG: no IEND")
+    """(type, payload) of each chunk PIL reads, in its order.
+
+    Up to the first IDAT every chunk is whole and its CRC checked (PIL
+    refuses a bad one there). From the first IDAT the CRCs are skipped and
+    the walk ends at the first chunk that is not IDAT, or at the end of the
+    file: like PIL, a file that ends, or carries junk, after its last IDAT
+    is read, and no chunk after the IDAT run changes the image; the inflate
+    decides whether the IDAT data was whole. An unknown critical chunk
+    there is still refused."""
+    pos, in_idat = len(PNG_SIGNATURE), False
+    while pos + 8 <= len(data):
         length, ctype = struct.unpack_from(">I4s", data, pos)
         end = pos + 8 + length
-        if end + 4 > len(data):
-            raise UnsupportedImage(f"truncated PNG chunk {ctype!r}")
-        payload = data[pos + 8:end]
-        if zlib.crc32(payload, zlib.crc32(ctype)) != struct.unpack_from(">I", data, end)[0]:
-            raise UnsupportedImage(f"bad CRC in PNG chunk {ctype!r}")
-        yield ctype, payload
-        if ctype == b"IEND":
+        if in_idat and ctype != b"IDAT":
+            if ctype.isalpha() and _unknown_critical(ctype):
+                raise UnsupportedImage(f"unknown critical PNG chunk {ctype!r}")
             return
+        if ctype == b"IDAT":
+            in_idat = True
+            yield ctype, data[pos + 8:min(end, len(data))]
+        else:
+            if end + 4 > len(data):
+                raise UnsupportedImage(f"truncated PNG chunk {ctype!r}")
+            payload = data[pos + 8:end]
+            if zlib.crc32(payload, zlib.crc32(ctype)) != struct.unpack_from(">I", data, end)[0]:
+                raise UnsupportedImage(f"bad CRC in PNG chunk {ctype!r}")
+            yield ctype, payload
         pos = end + 4
+    if not in_idat:
+        raise UnsupportedImage("truncated PNG: no IDAT")
 
 
 def _png_luma(data: bytes, native: bool) -> np.ndarray:
@@ -152,7 +170,9 @@ def _png_luma(data: bytes, native: bool) -> np.ndarray:
             palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(payload)
-        elif ctype != b"IEND" and not ctype[0] & 0x20:
+        elif ctype == b"IEND":
+            break
+        elif _unknown_critical(ctype):
             raise UnsupportedImage(f"unknown critical PNG chunk {ctype!r}")
     w, h, depth, ctype, compression, filtering, interlace = header
     if ctype not in PNG_CHANNELS or depth not in PNG_DEPTHS[ctype]:

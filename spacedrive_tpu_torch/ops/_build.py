@@ -73,6 +73,11 @@ _SIGNATURES = {
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
              ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
             ctypes.c_int),
+        "sd_hamming_near_counts": (
+            [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p],
+            ctypes.c_int),
         "sd_hamming_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "imgdec": {

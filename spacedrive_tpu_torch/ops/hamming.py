@@ -20,18 +20,13 @@ multi-GPU slice.
 The pyramid keeps the JAX package's semantics: digests padded to NT·T rows,
 rows past N masked, only global i < j counted, per-tile counts, a
 power-of-two tile, truncation past ``MAX_TOTAL_PAIRS`` that keeps the
-sparsest tiles, output sorted by (i, j). Hamming distance is a matmul: with
-each bit mapped to ±1, dot(x, y) = BITS − 2·hamming(x, y). The dtypes make
-it exact: on the card ±1 fp16 operands and an fp16 product (cuBLAS may
-reduce in fp16), every partial and final sum an integer of magnitude at most
-BITS ≤ 2048, which fp16 holds exactly (wider digests take fp32 operands
-and products); on the CPU fp32 throughout. ``jax.lax.map`` over tiles becomes
-batched products with bounded memory: the counts sweep multiplies one row
-tile by a block of column tiles per call (only j ≥ i: a tile below the
-diagonal holds no i < j pair, and its count stays 0), refinement and
-leaves gather their blocks and run one batched product per chunk. The
-products are turned into 0/1 indicators in place and summed in fp32
-(counts of at most 2**24 ones, exact), so no bool mask is cast to int64.
+sparsest tiles, output sorted by (i, j). Every level is a call of
+``hamming_cuda.hamming_near_counts``: on the card one kernel launch that
+keeps each pair's dot product in registers (with each bit mapped to ±1,
+dot(x, y) = BITS − 2·hamming(x, y), exact in s32) and writes only counts;
+on the CPU its plain version, fp32 ±1 products in bounded chunks. The sweep
+counts each tile pair's sub-blocks directly, so the JAX package's
+refinement at the tile size is folded into it.
 """
 
 from __future__ import annotations
@@ -65,17 +60,6 @@ def _words(digests, device: torch.device) -> torch.Tensor:
         return digests.to(device=device, dtype=torch.int32)
     arr = np.ascontiguousarray(digests, dtype=np.uint32)
     return torch.from_numpy(arr.view(np.int32)).to(device)
-
-
-def hamming_tile(x, y) -> torch.Tensor:
-    """[n, W] × [m, W] uint32 → [n, m] int32 Hamming distances (the plain
-    SWAR popcount, on the tensors' device; numpy inputs run on the CPU).
-
-    Kept under the JAX package's name for parity with it: no search path
-    calls it (they take ``hamming_cuda.hamming_near_mask`` or the pyramid's
-    ±1 products)."""
-    dev = x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
-    return hamming_cuda.hamming_distances_plain(_words(x, dev), _words(y, dev))
 
 
 def near_dup_pairs(
@@ -193,129 +177,29 @@ def near_dup_pairs_lsh(digests: np.ndarray, threshold: int,
 
 # -- Exact all-pairs: the counts sweep and the refinement pyramid ------------
 #
-#   counts: every tile pair (i ≤ j) → per-tile count of (i < j) pairs ≤
-#           threshold ([NT, NT] int32, a few KB to the host).
-#   refine: only the flagged blocks → counts of their 16×16 sub-blocks,
-#           tile → tile/16 → tile/256 (the work set stays O(pairs)).
-#   leaves: [F, 16, 16] masks to the host, where numpy nonzero finishes.
-# The N×N distance matrix never exists.
+#   counts: every tile pair (i ≤ j) → counts of (i < j) pairs ≤ threshold
+#           in each of its REFINE_SUB² sub-blocks (the count form at
+#           S = tile, g = REFINE_SUB: the JAX package's per-tile sweep and
+#           its first refinement in one pass), summed per tile for the
+#           pair budget.
+#   refine: only the flagged sub-blocks → counts of their 16×16
+#           sub-blocks, tile/16 → tile/256 (the work set stays O(pairs)).
+#   leaves: the count form at g = size, whose counts are the [F, size,
+#           size] 0/1 pair masks.
+# Each level's nonzero entries are found where its counts lie (torch.nonzero,
+# row-major as np.nonzero), and only their indices and the per-tile sums
+# cross to the host. The N×N distance matrix never exists, and on the card
+# neither does any product or mask of the sweep and the refinement.
 
-# Row tiles per counts call and blocks per refinement call (the JAX
-# package's dispatch sizes; here they bound each call's host round trip).
-COUNT_ROWS_PER_DISPATCH = 16
-REFINE_BLOCKS_PER_DISPATCH = 1024
 REFINE_SUB = 16  # 4096 → 256 → 16-wide leaf blocks
 # Host-side pair-list budget; denser output is degenerate (see
 # near_dup_pairs_device).
 MAX_TOTAL_PAIRS = 4 << 20
-# Bytes of products one matmul call may hold (the counts sweep's column
-# block, a refinement chunk).
-PRODUCT_BYTES = 1 << 30
+# Blocks per count-form call: bounds each call's [F, g, g] counts (32 MB
+# at g = 16) and its host round trip.
+BLOCKS_PER_DISPATCH = 1 << 15
 
 
-def _plane_dtype(device: torch.device, bits: int) -> torch.dtype:
-    """fp16 on the card while every dot fits its 11 significant bits; fp32
-    otherwise and on the CPU."""
-    return torch.float16 if device.type == "cuda" and bits <= 2048 else torch.float32
-
-
-def _bit_planes(words: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """[N, W] uint32 bits (int32 tensor) → [N, W*32] ±1 (bit b of word w
-    at column w*32+b)."""
-    n, w = words.shape
-    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
-    bits = ((words.to(torch.int64) & 0xFFFFFFFF)[:, :, None] >> shifts) & 1
-    return (bits.to(dtype) * 2 - 1).reshape(n, w * 32)
-
-
-def _origin_pair_mask(dots, oi, oj, size: int, bits: int, threshold: int, n: int):
-    """dots [F, size, size] → in-range (global i < j) mask for blocks whose
-    rows start at global indices oi [F] and columns at oj [F]."""
-    return (dots >= bits - 2 * threshold) & hamming_cuda.index_mask(oi, oj, size, size, n)
-
-
-def _pair_mask(dots, i: int, j: int, T: int, bits: int, threshold: int, n: int):
-    """dots [T, T] → boolean mask of in-range (global i < j) pairs for
-    whole-tile coords (the oi = i·T, oj = j·T case of the origin form).
-    Kept under the JAX package's name for parity with it: the pyramid
-    calls ``_origin_pair_mask``."""
-    origin = torch.tensor([[i * T, j * T]], dtype=torch.int64, device=dots.device)
-    return _origin_pair_mask(dots[None], origin[:, 0], origin[:, 1], T, bits,
-                             threshold, n)[0]
-
-
-def _near_indicator(dots: torch.Tensor, bits: int, threshold: int) -> torch.Tensor:
-    """1 where a dot says distance ≤ threshold, else 0, written over `dots`
-    in its own dtype: the sums that follow read half the bytes a bool mask
-    cast to int64 would, and need no copy."""
-    return torch.ge(dots, bits - 2 * threshold, out=dots)
-
-
-def _tile_counts_block(planes: torch.Tensor, row0: int, threshold: int, n: int,
-                       block: int) -> torch.Tensor:
-    """Pair counts for `block` consecutive row tiles from row0 (fewer past
-    NT): planes [NT, T, BITS] ±1 → [rows, NT] int32.
-
-    Row tile i meets column tiles j ≥ i in blocks of products of at most
-    PRODUCT_BYTES. Off the diagonal and inside N every pair is in range, so
-    the count is the indicator's sum; the diagonal tile keeps its strict
-    upper triangle and the last tile drops its padding."""
-    NT, T, BITS = planes.shape
-    flat = planes.reshape(NT * T, BITS)
-    rows = min(block, NT - row0)
-    per_call = max(1, PRODUCT_BYTES // (T * T * planes.element_size()))
-    upper = torch.ones((T, T), dtype=planes.dtype, device=planes.device).triu_(1)
-    out = torch.zeros((rows, NT), dtype=torch.int64, device=planes.device)
-    for k in range(rows):
-        i = row0 + k
-        for j0 in range(i, NT, per_call):
-            j1 = min(NT, j0 + per_call)
-            near = _near_indicator(torch.matmul(planes[i], flat[j0 * T:j1 * T].T),
-                                   BITS, threshold)
-            if j0 == i:
-                near[:, :T] *= upper
-            if (i + 1) * T > n:
-                near[n - i * T:] = 0
-            if j1 * T > n:
-                near[:, n - j0 * T:] = 0
-            # Row sums of at most T ones are exact in fp32.
-            per_row = near.view(T, j1 - j0, T).sum(dim=2, dtype=torch.float32)
-            out[k, j0:j1] = per_row.to(torch.int64).sum(dim=0)
-    return out.to(torch.int32)
-
-
-def _blocks(flat: torch.Tensor, coords: torch.Tensor, size: int):
-    """Gather each block's rows and columns: ([F, size, BITS] x, y, oi, oj)
-    for block origins `coords` [F, 2] in units of `size` rows."""
-    ar = torch.arange(size, dtype=torch.int64, device=flat.device)
-    oi, oj = coords[:, 0] * size, coords[:, 1] * size
-    return flat[oi[:, None] + ar], flat[oj[:, None] + ar], oi, oj
-
-
-def _refine_counts(flat: torch.Tensor, coords: torch.Tensor, threshold: int, n: int,
-                   size: int, sub: int) -> torch.Tensor:
-    """Subdivide count blocks: for each (row0, col0) block origin pair in
-    `coords` (units of `size` rows/cols of the flat plane array), return
-    [F, sub, sub] int32 pair counts of its sub-blocks. Matmul and
-    reshape-sum only: no nonzero on the card. Only blocks that touch the
-    diagonal or the end of N build an index mask."""
-    x, y, oi, oj = _blocks(flat, coords, size)
-    near = _near_indicator(torch.bmm(x, y.transpose(1, 2)), flat.shape[1], threshold)
-    edge = torch.nonzero((oi + size > oj) | (oi + size > n) | (oj + size > n)).flatten()
-    if len(edge):
-        near[edge] *= hamming_cuda.index_mask(oi[edge], oj[edge], size, size, n)
-    k = size // sub
-    # Sub-block sums of at most k² ones are exact in fp32.
-    return near.view(-1, sub, k, sub, k).sum(dim=(2, 4), dtype=torch.float32).to(torch.int32)
-
-
-def _leaf_masks(flat: torch.Tensor, coords: torch.Tensor, threshold: int, n: int,
-                size: int) -> torch.Tensor:
-    """[F, size, size] uint8 pair masks for leaf blocks — small enough to
-    ship to the host, where numpy nonzero finishes the job."""
-    x, y, oi, oj = _blocks(flat, coords, size)
-    return _origin_pair_mask(torch.bmm(x, y.transpose(1, 2)), oi, oj, size,
-                             flat.shape[1], threshold, n).to(torch.uint8)
 
 
 def near_dup_pairs_device(digests: np.ndarray, threshold: int,
@@ -323,15 +207,24 @@ def near_dup_pairs_device(digests: np.ndarray, threshold: int,
                           stats: Optional[Dict] = None,
                           device="cuda") -> List[Tuple[int, int]]:
     """Exact all-pairs (i < j, distance ≤ threshold) at large N: the counts
-    sweep, then the refinement pyramid, on `device`.
+    sweep, then the refinement pyramid, on `device`, every level one or more
+    ``hamming_near_counts`` calls (the kernel on the card, its plain version
+    on the CPU).
 
     Output is bounded at MAX_TOTAL_PAIRS: a degenerate near-identical
     cluster of m digests holds ~m²/2 qualifying pairs; past the budget the
     densest tiles are dropped with a RuntimeWarning, and
     `stats["truncated_pairs"]` carries the dropped-pair count. When `stats`
     is given, `stats["stage_s"]` gets each stage's seconds (each ends in a
-    copy to the host, so the card's work is inside them): "planes",
-    "counts", "refine_<size>" per level, "leaves", "host"."""
+    copy to the host, so the card's work is inside them): "planes" (the
+    padded digests to the device), "counts", "refine_<size>" per level
+    below the tile, "leaves", "host".
+
+    Device memory past the digests: 4 B a tile pair for the per-tile
+    totals, one dispatch's [BLOCKS_PER_DISPATCH, 16, 16] int32 counts
+    (32 MB), and the sub-counts of the tiles that hold a pair (1 KB each;
+    there are no more such tiles than qualifying pairs), then each level's
+    counts of the flagged sub-blocks, which the pair budget bounds."""
     digests = np.ascontiguousarray(digests, dtype=np.uint32)
     N, W = digests.shape
     if N < 2:
@@ -354,21 +247,50 @@ def near_dup_pairs_device(digests: np.ndarray, threshold: int,
     NT = -(-N // tile)
     padded = np.zeros((NT * tile, W), dtype=np.uint32)
     padded[:N] = digests
-    flat = _bit_planes(_words(padded, dev), _plane_dtype(dev, W * 32))
-    planes = flat.view(NT, tile, W * 32)
+    words = _words(padded, dev)
     lap("planes")
 
-    blocks = []
-    for r0 in range(0, NT, COUNT_ROWS_PER_DISPATCH):
-        blocks.append(_tile_counts_block(planes, r0, threshold, N,
-                                         COUNT_ROWS_PER_DISPATCH).cpu().numpy())
-    counts = np.concatenate(blocks, axis=0)
+    def counts(blocks: np.ndarray, size: int, g: int) -> torch.Tensor:
+        """[F, g, g] counts, on `dev`, of blocks with origins `blocks`
+        (units of size)."""
+        outs = [hamming_cuda.hamming_near_counts(
+            words, blocks[f0:f0 + BLOCKS_PER_DISPATCH].astype(np.int64) * size, size, g,
+            threshold, N) for f0 in range(0, len(blocks), BLOCKS_PER_DISPATCH)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    def nonzero(t: torch.Tensor) -> np.ndarray:
+        """Indices of t's nonzero entries, row-major (np.nonzero's order),
+        found where t lies: only they cross to the host."""
+        return torch.nonzero(t).cpu().numpy().T
+
+    # The sweep: tile pairs j ≥ i in row-major order (a tile below the
+    # diagonal holds no i < j pair), at sub-block granularity. Each
+    # dispatch keeps only the sub-counts of its tiles that hold a pair;
+    # only the per-tile sums cross to the host.
+    g0 = REFINE_SUB if tile > REFINE_SUB else 1
+    iu, ju = np.triu_indices(NT)
+    tile_pairs = np.stack([iu, ju], axis=1)
+    sums, live = [], []
+    for f0 in range(0, len(tile_pairs), BLOCKS_PER_DISPATCH):
+        sub = hamming_cuda.hamming_near_counts(
+            words, tile_pairs[f0:f0 + BLOCKS_PER_DISPATCH].astype(np.int64) * tile, tile,
+            g0, threshold, N)
+        total = sub.sum(dim=(1, 2), dtype=torch.int32)
+        sums.append(total)
+        live.append(sub[torch.nonzero(total).flatten()])
+    grid = np.zeros((NT, NT), dtype=np.int32)
+    grid[iu, ju] = torch.cat(sums).cpu().numpy()
+    live = torch.cat(live)
     lap("counts")
 
-    coords = np.argwhere(counts > 0).astype(np.int32)
+    # The JAX package's pair budget, on the same per-tile counts in the
+    # same order: it keeps and drops the same tiles. argwhere's row-major
+    # order is the sweep's, so row k of `live` is the k-th nonzero tile.
+    coords = np.argwhere(grid > 0).astype(np.int32)
     if len(coords) == 0:
         return []
-    tile_totals = counts[coords[:, 0], coords[:, 1]].astype(np.int64)
+    rows = np.arange(len(coords))
+    tile_totals = grid[coords[:, 0], coords[:, 1]]
     if int(tile_totals.sum()) > MAX_TOTAL_PAIRS:
         # Keep sparsest tiles first until the pair budget is spent.
         order = np.argsort(tile_totals)
@@ -381,38 +303,31 @@ def near_dup_pairs_device(digests: np.ndarray, threshold: int,
         if stats is not None:
             stats["truncated_pairs"] = (
                 stats.get("truncated_pairs", 0) + dropped)
-        coords = coords[order][keep]
+        coords, rows = coords[order][keep], order[keep]
         if len(coords) == 0:
             return []
 
-    def run_level(fn, coords, size, *args) -> np.ndarray:
-        """One refinement level in chunks of at most
-        REFINE_BLOCKS_PER_DISPATCH blocks and PRODUCT_BYTES of products."""
-        per = max(1, min(REFINE_BLOCKS_PER_DISPATCH,
-                         PRODUCT_BYTES // (size * size * flat.element_size())))
-        outs = []
-        for f0 in range(0, len(coords), per):
-            chunk = torch.from_numpy(coords[f0:f0 + per].astype(np.int64)).to(dev)
-            outs.append(fn(flat, chunk, threshold, N, size, *args).cpu().numpy())
-        return np.concatenate(outs, axis=0)
+    def subdivide(coords: np.ndarray, sub_counts: torch.Tensor, g: int) -> np.ndarray:
+        """Origins (units of size / g) of the nonzero sub-blocks."""
+        f, a, b = nonzero(sub_counts)
+        return np.stack([coords[f, 0] * g + a, coords[f, 1] * g + b],
+                        axis=1).astype(np.int32)
 
-    # Refinement pyramid: tile → tile/16 → tile/256 leaf blocks; each
-    # level keeps only sub-blocks whose count is nonzero.
+    # The kept tiles' sub-block counts come from the sweep; each level
+    # below keeps only sub-blocks whose count is nonzero.
     size = tile
+    if g0 > 1:
+        coords = subdivide(coords, live[torch.from_numpy(rows).to(dev)], g0)
+        size //= g0
     while size > REFINE_SUB:
-        sub_counts = run_level(_refine_counts, coords, size, REFINE_SUB)
-        f, a, b = np.nonzero(sub_counts)
-        coords = np.stack([coords[f, 0] * REFINE_SUB + a,
-                           coords[f, 1] * REFINE_SUB + b],
-                          axis=1).astype(np.int32)
+        coords = subdivide(coords, counts(coords, size, REFINE_SUB), REFINE_SUB)
         lap(f"refine_{size}")
         size //= REFINE_SUB
         if len(coords) == 0:
             return []
 
-    masks = run_level(_leaf_masks, coords, size)
+    f, ii, jj = nonzero(counts(coords, size, size))  # 0/1: the pair masks
     lap("leaves")
-    f, ii, jj = np.nonzero(masks)
     pi = coords[f, 0].astype(np.int64) * size + ii
     pj = coords[f, 1].astype(np.int64) * size + jj
     order = np.lexsort((pj, pi))

@@ -177,7 +177,10 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     hamming_cuda.reset_launches()
     assert torch.equal(hamming_cuda.hamming_near_mask(d, d, 0),
                        hamming_cuda.near_mask_plain(d, d, 0))
-    assert hamming_cuda.launches == {hamming_cuda.NEAR_MASK: 0}
+    words = torch.zeros((64, 2), dtype=torch.int32)
+    assert torch.equal(hamming_cuda.hamming_near_counts(words, [[0, 32]], 32, 16, 0, 64),
+                       hamming_cuda.near_counts_plain(words, [[0, 32]], 32, 16, 0, 64))
+    assert hamming_cuda.launches == {hamming_cuda.NEAR_MASK: 0, hamming_cuda.NEAR_COUNTS: 0}
 
 
 def test_wrappers_refuse_malformed_inputs():

@@ -289,6 +289,70 @@ def test_hamming_near_mask_matches_plain(cuda, n, m, words, oi, oj, n_valid):
     assert int(want.sum()) > 0 or n * m == 1 or oi >= oj + m - 1
 
 
+@pytest.mark.parametrize("words", range(1, 9))
+@pytest.mark.parametrize("threshold", [-1, "half", "32W"])
+def test_hamming_near_mask_at_every_width_and_threshold_edge(cuda, words, threshold):
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    t = {"half": 8 * words, "32W": 32 * words}.get(threshold, threshold)
+    rng = np.random.default_rng(words)
+    x = rng.integers(0, 2**32, (200, words), dtype=np.uint32) & np.uint32(0x0F0F0F0F)
+    xt = torch.from_numpy(x.view(np.int32)).to(cuda)
+    for oi, oj, n_valid in ((0, 0, None), (70, 0, 190), (0, 130, 250)):
+        got = hamming_cuda.hamming_near_mask(xt[:137], xt[3:], t, oi, oj, n_valid)
+        want = hamming_cuda.near_mask_plain(xt[:137], xt[3:], t, oi, oj, n_valid)
+        assert torch.equal(got, want)
+        assert int(want.sum()) > 0 or t == -1
+
+
+def _count_case(seed, n_rows, words):
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 2**32, (n_rows, words), dtype=np.uint32) & np.uint32(0x0F0F0F0F)
+    d[n_rows // 3:n_rows // 3 + 40] = d[:40]  # exact and near copies
+    d[n_rows // 3:n_rows // 3 + 20, 0] ^= np.uint32(0b111)
+    return d
+
+
+@pytest.mark.parametrize("size,g,n_rows,words,n_valid", [
+    (4096, 16, 9000, 2, 7000), (256, 16, 1000, 1, 1000), (256, 16, 1000, 8, 901),
+    (16, 16, 300, 3, 290), (64, 16, 500, 5, 437), (512, 16, 1100, 2, 1100),
+    (128, 1, 700, 4, 650), (1024, 4, 2100, 6, 2050), (2048, 4, 4200, 7, 3000)])
+@pytest.mark.parametrize("threshold", [-1, "half", "32W"])
+def test_hamming_near_counts_matches_plain(cuda, size, g, n_rows, words, n_valid, threshold):
+    """Blocks on, above and below the diagonal, off it by ragged offsets and
+    across it, cut by n_valid; sub-blocks from 1 to 512 rows (several
+    256-row bands adding into one)."""
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    t = {"half": 8 * words, "32W": 32 * words}.get(threshold, threshold)
+    d = torch.from_numpy(_count_case(size + words, n_rows, words).view(np.int32)).to(cuda)
+    top = n_rows - size
+    origins = np.array([[0, 0], [0, top], [top, 0], [top, top], [top // 3, top // 2],
+                        [top // 2, top // 3], [7, 5], [5, 7 + size // 2]], np.int64)
+    hamming_cuda.reset_launches()
+    got = hamming_cuda.hamming_near_counts(d, origins, size, g, t, n_valid)
+    assert hamming_cuda.launches[hamming_cuda.NEAR_COUNTS] == 1
+    want = hamming_cuda.near_counts_plain(d, origins, size, g, t, n_valid)
+    torch.cuda.synchronize()
+    assert got.shape == (len(origins), g, g) and torch.equal(got, want)
+    assert int(want.sum()) > 0 or t == -1
+
+
+def test_hamming_near_counts_refuses_and_counts_no_launch(cuda):
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    wide = torch.zeros((64, 9), dtype=torch.int32, device=cuda)
+    narrow = torch.zeros((64, 2), dtype=torch.int32, device=cuda)
+    hamming_cuda.reset_launches()
+    with pytest.raises(ValueError):
+        hamming_cuda.hamming_near_counts(wide, [[0, 0]], 16, 16, 3, 64)
+    with pytest.raises(ValueError):
+        hamming_cuda.hamming_near_counts(narrow, [[0, 60]], 16, 16, 3, 64)
+    with pytest.raises(ValueError):
+        hamming_cuda.hamming_near_counts(narrow, [[0, 0]], 64, 128, 3, 64)
+    assert hamming_cuda.launches[hamming_cuda.NEAR_COUNTS] == 0
+
+
 def test_hamming_near_mask_refuses_what_the_kernel_cannot_take(cuda):
     from spacedrive_tpu_torch.ops import hamming_cuda
 
@@ -326,6 +390,8 @@ def test_near_dup_pairs_on_the_card_match_plain(cuda, case):
     stats = {}
     got = hamming.near_dup_pairs(d, 10, tile=tile, stats=stats, device=cuda)
     assert hamming_cuda.launches[hamming_cuda.NEAR_MASK] == (case == "one_tile")
+    # The pyramid: the sweep, the leaves and nothing between at tile 256.
+    assert hamming_cuda.launches[hamming_cuda.NEAR_COUNTS] == (0 if case == "one_tile" else 2)
     assert got == hamming.near_dup_pairs(d, 10, tile=tile, device="cpu") == _brute_pairs(d, 10)
 
 
@@ -339,8 +405,26 @@ def test_pair_budget_truncates_on_the_card(cuda, monkeypatch):
     stats = {}
     with pytest.warns(RuntimeWarning, match="truncating"):
         got = hamming.near_dup_pairs_device(d, 0, tile=256, stats=stats, device=cuda)
-    assert got == hamming.near_dup_pairs_device(d, 0, tile=256, device="cpu")
+    plain_stats = {}
+    with pytest.warns(RuntimeWarning, match="truncating"):
+        want = hamming.near_dup_pairs_device(d, 0, tile=256, stats=plain_stats, device="cpu")
+    assert got == want and stats["truncated_pairs"] == plain_stats["truncated_pairs"]
     assert (520, 550) in got and len(got) <= 1000 and stats["truncated_pairs"] > 0
+
+
+def test_pyramid_at_the_sweep_tile_matches_plain(cuda):
+    """tile 4096: the sweep at 256-row sub-blocks, one refinement level
+    (256 → 16), the leaves; a cluster across two tiles."""
+    from spacedrive_tpu_torch.ops import hamming, hamming_cuda
+
+    d = _digests(21, 6000, 2, planted=60)
+    d[4000:4200] = d[4000]
+    hamming_cuda.reset_launches()
+    stats = {}
+    got = hamming.near_dup_pairs_device(d, 10, tile=4096, stats=stats, device=cuda)
+    assert hamming_cuda.launches[hamming_cuda.NEAR_COUNTS] == 3
+    assert set(stats["stage_s"]) == {"planes", "counts", "refine_256", "leaves", "host"}
+    assert got == _brute_pairs(d, 10) and len(got) >= 200 * 199 // 2
 
 
 def test_near_dup_job_on_the_card_matches_plain(cuda, tmp_path):

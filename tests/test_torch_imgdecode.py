@@ -119,6 +119,53 @@ def _png_with(ctype=2, depth=8, interlace=0, extra=b"", crc_flip=False, cut=None
     return data[:cut] if cut else data
 
 
+def _flip_crc(chunk: bytes) -> bytes:
+    return chunk[:-1] + bytes([chunk[-1] ^ 1])
+
+
+def _png_walk(case: str) -> bytes:
+    """A 40×30 RGB PNG whose chunks after the header are laid out as `case`
+    names: PIL reads past CRCs from the first IDAT on and stops at the
+    first chunk after the IDAT run or at the end of the file."""
+    rng = np.random.default_rng(0)
+    rows = rng.integers(0, 256, (30, 120)).astype(np.uint8)
+    z = zlib.compress(chip_smoke.png_filter(rows, 3, np.zeros(30, np.int64)))
+    head = chip_smoke.PNG_SIGNATURE + chip_smoke.png_chunk(
+        b"IHDR", struct.pack(">IIBBBBB", 40, 30, 8, 2, 0, 0, 0))
+    idat = chip_smoke.png_chunk(b"IDAT", z)
+    halves = [chip_smoke.png_chunk(b"IDAT", z[:len(z) // 2]),
+              chip_smoke.png_chunk(b"IDAT", z[len(z) // 2:])]
+    text = chip_smoke.png_chunk(b"tEXt", b"k\x00v")
+    plte = chip_smoke.png_chunk(b"PLTE", bytes(range(12)))
+    iend = chip_smoke.png_chunk(b"IEND", b"")
+    return head + {
+        "idat_bad_crc": _flip_crc(idat) + iend,
+        "second_idat_bad_crc": halves[0] + _flip_crc(halves[1]) + iend,
+        "text_after_idat_bad_crc": idat + _flip_crc(text) + iend,
+        "no_iend": idat,
+        "iend_bad_crc": idat + _flip_crc(iend),
+        "junk_after_idat": idat + b"\x00\x01",
+        "plte_after_idat": idat + plte + iend,
+        "text_before_idat_bad_crc": _flip_crc(text) + idat + iend,
+        "idat_cut_midway": halves[0] + iend,
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["idat_bad_crc", "second_idat_bad_crc",
+                                  "text_after_idat_bad_crc", "no_iend", "iend_bad_crc",
+                                  "junk_after_idat", "plte_after_idat"])
+def test_png_chunk_walk_reads_what_pil_reads(case):
+    assert_pils(_png_walk(case))
+
+
+@pytest.mark.parametrize("case", ["text_before_idat_bad_crc", "idat_cut_midway"])
+def test_png_chunk_walk_refuses_what_pil_refuses(case):
+    """PIL refuses these (a bad CRC before IDAT, IDAT data cut midway); the
+    port's refusals are in UNSUPPORTED."""
+    with pytest.raises((OSError, SyntaxError)):
+        pil_grid(_png_walk(case))
+
+
 UNSUPPORTED = {
     "jpeg": lambda: _pil_bytes("RGB", "JPEG"),
     "gif": lambda: _pil_bytes("P", "GIF"),
@@ -128,8 +175,9 @@ UNSUPPORTED = {
     "png_16bit_rgb": lambda: _png_with(2, 16),
     "png_interlaced": lambda: _png_with(interlace=1),
     "png_truncated": lambda: _png_with(cut=50),
-    "png_no_iend": lambda: _png_with(cut=-12),
     "png_bad_crc": lambda: _png_with(crc_flip=True),
+    "png_bad_crc_text_before_idat": lambda: _png_walk("text_before_idat_bad_crc"),
+    "png_idat_cut_midway": lambda: _png_walk("idat_cut_midway"),
     "png_unknown_critical_chunk": lambda: _png_with(extra=chip_smoke.png_chunk(b"ZZZZ", b"x")),
     "png_palette_index_past_plte": lambda: _png_with(3, 8),
     "png_bad_filter_type": lambda: chip_smoke.PNG_SIGNATURE + chip_smoke.png_chunk(

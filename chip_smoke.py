@@ -53,20 +53,27 @@ with CUDA events. Phases:
    ``ObjectValidatorJob`` in ``fill`` mode (every checksum equal to phase
    5's, K1 per page, 9 K2 windows and 9 folds for the 64 MiB file) and in
    ``verify`` mode (no mismatch);
-9. near-dup job — two image locations written by the harness's own PNG and
-   BMP writer in the system temp dir: A, about 10 000 images of 48–800 px a
-   side (every PNG colour type, depth and row filter, BMP at 8, 24 and 32
-   bits, 300 planted near-dup groups, 100 byte-identical copies, 20 files
-   the decoder must refuse), and B, about 2 000. Each is scanned with
+9. near-dup job — two image locations written by the harness's own PNG,
+   BMP, JPEG, GIF and ICO writers in the system temp dir: A, about 10 000
+   images of 48–800 px a side (ICO frames at most 256), every PNG colour
+   type, depth and row filter, Adam7 and 16-bit PNG, BMP at 8, 24 and 32
+   bits, JPEG at 4:2:0, 4:2:2, 4:4:4, gray, progressive (spectral
+   selection, DC successive approximation), with restart intervals and as
+   Adobe RGB, GIF plain and interlaced, ICO with a PNG or DIB frame; 300
+   planted near-dup groups (a JPEG re-encode in each), 100 byte-identical
+   copies, 20 files the decoder must refuse (a truncated PNG, a JPEG
+   without EOI, random bytes, a JPEG claiming arithmetic coding); and B,
+   about 2 000. Each is scanned with
    ``scan_location(backend="cuda")``, then ``NearDupDetectorJob(backend=
-   "cuda")`` decodes on the host, pHashes 256-image steps on the card and
-   runs the exact pairs search: the pyramid (``hamming_near_counts``
-   launches) at A's ~9 900 digests, one ``hamming_near_mask`` launch at B's
-   ~1 950. Checked: the job's errors are
-   exactly the refused files; the native grids equal the plain decoder's on
-   a 1024-file sample and every stored pHash the plain pHash of its grid
-   (under the tie rule); the stored pairs equal a numpy brute force,
-   distances included; every planted pair is found;
+   "cuda")`` decodes on the host (native C++ decoders), pHashes 256-image
+   steps on the card and runs the exact pairs search: the pyramid
+   (``hamming_near_counts`` launches) at A's ~9 900 digests, one
+   ``hamming_near_mask`` launch at B's ~1 950. Checked: the job's errors
+   are exactly the refused files; the native grids equal the plain
+   decoder's on a 1024-file sample holding every format; every stored
+   pHash the plain pHash of its grid (under the tie rule); the stored pairs
+   equal a numpy brute force, distances included; every planted pair is
+   found. Host decode time per image is printed per format;
 10. near-dup at scale — ``near_dup_pairs(device="cuda")`` (each call a
    main path: the count form's sweep, refinement and leaves) at 100 000
    digests against ``hamming_near_mask`` tiled over the card, at 1 000 000
@@ -293,7 +300,7 @@ def phase_build():
 
     from spacedrive_tpu_torch.ops import _build
 
-    names = ("blake3_chunk", "hamming", "sdio_stage", "imgdec")
+    names = ("blake3_chunk", "hamming", "sdio_stage", "imgdec", "jpegdec")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(_build.compile_source, names))
@@ -1212,10 +1219,41 @@ def png_filter(rows: np.ndarray, bpp: int, filters: np.ndarray) -> bytes:
     return out.tobytes()
 
 
+def unpack_bits(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
+    """[h, rowbytes] MSB-first packed values → [h, width] (pack_bits' inverse)."""
+    per = 8 // depth
+    shifts = (8 - depth) - depth * np.arange(per, dtype=np.uint8)
+    values = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return values.reshape(rows.shape[0], -1)[:, :width]
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def adam7_passes(rows: np.ndarray, width: int, depth: int) -> list:
+    """Raw scanlines [h, rowbytes] → (pass rows, pass width, first image
+    row, row step) of each of Adam7's seven passes, empty passes left out."""
+    h = rows.shape[0]
+    if depth < 8:
+        pixels = unpack_bits(rows, width, depth)
+    else:
+        pixels = rows.reshape(h, width, -1)
+    out = []
+    for x0, y0, dx, dy in ADAM7:
+        sub = pixels[y0::dy, x0::dx]
+        if sub.shape[0] and sub.shape[1]:
+            out.append((pack_bits(sub, depth) if depth < 8 else sub.reshape(sub.shape[0], -1),
+                        sub.shape[1], y0, dy))
+    return out
+
+
 def png_bytes(rows: np.ndarray, width: int, ctype: int, depth: int, filters,
               palette=None, trns: bytes = None, level: int = 6,
               interlace: int = 0) -> bytes:
-    """A PNG of raw scanlines `rows` [h, rowbytes] (packed below 8 bits)."""
+    """A PNG of raw scanlines `rows` [h, rowbytes] (packed below 8 bits,
+    big-endian samples at 16); `interlace` 1 writes Adam7's passes, each
+    pass row taking the filter of its image row."""
     import struct
     import zlib
 
@@ -1227,8 +1265,20 @@ def png_bytes(rows: np.ndarray, width: int, ctype: int, depth: int, filters,
         out += png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
     if trns is not None:
         out += png_chunk(b"tRNS", trns)
-    out += png_chunk(b"IDAT", zlib.compress(png_filter(rows, bpp, filters), level))
+    filters = np.asarray(filters)
+    if interlace:
+        body = b"".join(png_filter(sub, bpp, filters[y0::dy])
+                        for sub, _, y0, dy in adam7_passes(rows, width, depth))
+    else:
+        body = png_filter(rows, bpp, filters)
+    out += png_chunk(b"IDAT", zlib.compress(body, level))
     return out + png_chunk(b"IEND", b"")
+
+
+def png16_rows(values: np.ndarray) -> np.ndarray:
+    """[h, w·channels] samples below 2**16 → [h, 2·w·channels] big-endian bytes."""
+    return np.ascontiguousarray(values.astype(">u2")).view(np.uint8).reshape(
+        values.shape[0], -1)
 
 
 def bmp_bytes(pixels: np.ndarray, palette=None, top_down: bool = False,
@@ -1261,14 +1311,427 @@ def bmp_bytes(pixels: np.ndarray, palette=None, top_down: bool = False,
     return header + info + table + rows.tobytes()
 
 
+
+# -- GIF and ICO writers (harness code: the near-dup corpus and the tests) ------
+
+
+def lzw_codes(indices: np.ndarray, min_size: int) -> tuple:
+    """GIF LZW of the index stream: (codes, widths), a clear code first and
+    again whenever the table fills, the end code last."""
+    clear, end = 1 << min_size, (1 << min_size) + 1
+    codes, widths = [clear], [min_size + 1]
+    size, nxt, table = min_size + 1, clear + 2, {}
+    flat = indices.reshape(-1).tolist()
+    prefix = flat[0]
+    for c in flat[1:]:
+        code = table.get(prefix << 8 | c)
+        if code is not None:
+            prefix = code
+            continue
+        codes.append(prefix)
+        widths.append(size)
+        table[prefix << 8 | c] = nxt
+        nxt += 1
+        if nxt - 1 == 1 << size and size < 12:
+            size += 1
+        if nxt == 4096:
+            codes.append(clear)
+            widths.append(size)
+            size, nxt, table = min_size + 1, clear + 2, {}
+        prefix = c
+    codes.append(prefix)
+    widths.append(size)
+    if nxt == 1 << size and size < 12:  # the decoder's entry for that code
+        size += 1
+    codes.append(end)
+    widths.append(size)
+    return np.array(codes, np.int64), np.array(widths, np.int64)
+
+
+def _pack_lsb(codes: np.ndarray, widths: np.ndarray) -> bytes:
+    """Variable-width codes packed least significant bit first."""
+    ev = np.repeat(np.arange(len(codes)), widths)
+    j = np.arange(int(widths.sum())) - np.repeat(np.cumsum(widths) - widths, widths)
+    return np.packbits(((codes[ev] >> j) & 1).astype(np.uint8), bitorder="little").tobytes()
+
+
+def gif_bytes(indices: np.ndarray, palette, local: bool = False, interlace: bool = False,
+              screen=None, offset=(0, 0), transparency: int = None) -> bytes:
+    """A one-frame GIF89a of [h, w] palette indices: `palette` [k, 3] RGB as
+    the global table (or the frame's local one), the frame at `offset` on a
+    `screen` (w, h) (the frame's size by default), a graphic control block
+    with `transparency`, rows in the four-pass order where `interlace`."""
+    import struct
+
+    h, w = indices.shape
+    pal = np.asarray(palette, np.uint8)
+    bits = max(1, int(np.ceil(np.log2(max(len(pal), 2)))))
+    table = np.zeros((1 << bits, 3), np.uint8)
+    table[:len(pal)] = pal
+    min_size = max(2, bits)
+    sw, sh = screen or (w, h)
+    flags = 0x80 | (bits - 1) << 4 | (bits - 1)
+    out = b"GIF89a" + struct.pack("<HHBBB", sw, sh, 0 if local else flags, 0, 0)
+    if not local:
+        out += table.tobytes()
+    if transparency is not None:
+        out += b"\x21\xf9\x04" + struct.pack("<BHB", 1, 0, transparency) + b"\x00"
+    out += b"\x2c" + struct.pack("<HHHHB", offset[0], offset[1], w, h,
+                                 (0x80 | (bits - 1) if local else 0) | (0x40 if interlace else 0))
+    if local:
+        out += table.tobytes()
+    if interlace:
+        order = np.concatenate([np.arange(a, h, b) for a, b in ((0, 8), (4, 8), (2, 4), (1, 2))])
+        indices = indices[order]
+    data = _pack_lsb(*lzw_codes(indices.astype(np.int64), min_size))
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return out + bytes([min_size]) + blocks + b"\x00\x3b"
+
+
+def dib_bytes(pixels: np.ndarray, bits: int, palette=None, alpha: np.ndarray = None,
+              mask: np.ndarray = None) -> bytes:
+    """An ICO frame's DIB: BITMAPINFOHEADER with the doubled height, the
+    palette (1, 4 or 8 bits: `pixels` [h, w] indices) or BGR(A) pixels (24
+    or 32 bits: `pixels` [h, w, 3] RGB, `alpha` [h, w]), bottom-up, then
+    the 1-bit AND `mask` [h, w] (zeros by default)."""
+    import struct
+
+    h, w = pixels.shape[:2]
+    if bits <= 8:
+        table = np.zeros((len(palette), 4), np.uint8)
+        table[:, :3] = np.asarray(palette, np.uint8)[:, ::-1]
+        body = pack_bits(pixels.astype(np.int64), bits) if bits < 8 else pixels.astype(np.uint8)
+        table = table.tobytes()
+    else:
+        body = pixels[..., ::-1].astype(np.uint8)
+        if bits == 32:
+            a = np.zeros((h, w), np.uint8) if alpha is None else alpha.astype(np.uint8)
+            body = np.concatenate([body, a[..., None]], axis=2)
+        body, table = body.reshape(h, -1), b""
+    stride = ((w * bits + 31) >> 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :body.shape[1]] = body
+    mstride = ((w + 31) >> 3) & ~3
+    mrows = np.zeros((h, mstride), np.uint8)
+    mrows[:, :-(-w // 8)] = pack_bits(np.zeros((h, w), np.int64) if mask is None
+                                      else mask.astype(np.int64), 1)
+    info = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, rows.size + mrows.size, 0, 0,
+                       len(palette) if bits <= 8 else 0, 0)
+    return info + table + rows[::-1].tobytes() + mrows[::-1].tobytes()
+
+
+def ico_bytes(frames: list) -> bytes:
+    """An ICO of frames [(image bytes: PNG or DIB, width, height, bit count)]."""
+    import struct
+
+    out = struct.pack("<HHH", 0, 1, len(frames))
+    offset = 6 + 16 * len(frames)
+    for data, w, h, bits in frames:
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, 0, 0, 1, bits, len(data), offset)
+        offset += len(data)
+    return out + b"".join(f[0] for f in frames)
+
+# -- JPEG writer (harness code: the near-dup corpus and the tests) -------------
+
+# ITU T.81 Annex K's tables: the luminance and chrominance quantisation
+# tables (row-major) and the typical Huffman tables (code counts by length
+# 1..16, then the symbols).
+JPEG_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+              14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+              18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+              49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47] + [99] * 4 + [18, 21, 26, 66] + [99] * 4
+             + [24, 26, 56] + [99] * 5 + [47, 66] + [99] * 38))
+_AC_SYMBOLS = [(r << 4) | s for r in range(16) for s in range(1, 11)]
+JPEG_HUFFMAN = {
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), tuple(range(12))),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), tuple(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D), (
+        0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+        0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08, 0x23, 0x42, 0xB1, 0xC1,
+        0x15, 0x52, 0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0A, 0x16, 0x17, 0x18,
+        0x19, 0x1A, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2A, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+        0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57,
+        0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74, 0x75,
+        0x76, 0x77, 0x78, 0x79, 0x7A, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8A, 0x92,
+        0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5, 0xA6, 0xA7,
+        0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3,
+        0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8,
+        0xD9, 0xDA, 0xE1, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF1, 0xF2,
+        0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA)),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77), (
+        0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+        0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1, 0xC1, 0x09,
+        0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25,
+        0xF1, 0x17, 0x18, 0x19, 0x1A, 0x26, 0x27, 0x28, 0x29, 0x2A, 0x35, 0x36, 0x37, 0x38,
+        0x39, 0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56,
+        0x57, 0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74,
+        0x75, 0x76, 0x77, 0x78, 0x79, 0x7A, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+        0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5,
+        0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA,
+        0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6,
+        0xD7, 0xD8, 0xD9, 0xDA, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF2,
+        0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA)),
+}
+# The progression of a progressive file: DC first at Al = 1 (all components
+# interleaved), two AC bands per component, then the DC refinement.
+JPEG_PROGRESSION = ((0, 0, 0, 1), (1, 5, 0, 0), (6, 63, 0, 0), (0, 0, 1, 0))
+
+
+def _dct_matrix() -> np.ndarray:
+    k, n = np.arange(8)[:, None], np.arange(8)[None, :]
+    m = np.cos((2 * n + 1) * k * np.pi / 16) * np.sqrt(2 / 8)
+    m[0] /= np.sqrt(2)
+    return m
+
+
+_ZIGZAG = np.array(sorted(range(64), key=lambda i: (i // 8 + i % 8, (i // 8 if (i // 8 + i % 8) % 2
+                                                                      else i % 8))))
+
+
+def jpeg_quant(quality: int, chroma: bool) -> np.ndarray:
+    """IJG's scaling of Annex K's table to `quality` (1..100), row-major."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((JPEG_QUANT[int(chroma)] * scale + 50) // 100, 1, 255)
+
+
+def _huffman_codes(table) -> tuple:
+    """(code, length) arrays indexed by symbol for Annex K's canonical code."""
+    counts, symbols = table
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(counts, 1):
+        for _ in range(count):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _magnitude(v: np.ndarray) -> tuple:
+    """(category, extra bits) of JPEG's value coding."""
+    s = np.zeros(v.shape, np.int64)
+    a = np.abs(v)
+    nz = a > 0
+    s[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+    return s, np.where(v >= 0, v, v + (1 << s) - 1)
+
+
+def _scan_events(zz: np.ndarray, seq: np.ndarray, comp: np.ndarray, interval: np.ndarray,
+                 spec: tuple, tables: list) -> tuple:
+    """(codes, lengths, interval) of every Huffman code or raw bit field a
+    scan writes, in stream order: blocks zz[seq] (component comp, restart
+    interval interval) under spec (Ss, Se, Ah, Al)."""
+    ss, se, ah, al = spec
+    n = len(seq)
+    keys, codes, lens = [], [], []
+    if ss == 0 and ah:  # DC refinement: one raw bit a block
+        return (zz[seq, 0] >> al) & 1, np.ones(n, np.int64), interval
+    if ss == 0:
+        dc = zz[seq, 0] >> al
+        prev = np.zeros(n, np.int64)
+        for c in np.unique(comp):
+            at = np.nonzero(comp == c)[0]
+            p = np.concatenate([[0], dc[at][:-1]])
+            p[np.concatenate([[True], interval[at][1:] != interval[at][:-1]])] = 0
+            prev[at] = p
+        s, extra = _magnitude(dc - prev)
+        tab = np.stack([t[0] for t in tables])
+        code_of, len_of = tab[comp, 0, s], tab[comp, 1, s]
+        keys.append(np.arange(n) * 200)
+        codes.append(code_of << s | extra)
+        lens.append(len_of + s)
+    if se > 0:
+        lo = max(ss, 1)
+        band = zz[seq, lo:se + 1]
+        band = np.where(band >= 0, band >> al, -((-band) >> al))
+        width = se - lo + 1
+        actab = np.stack([t[1] for t in tables])
+        bi, k = np.nonzero(band)
+        first = np.concatenate([[True], bi[1:] != bi[:-1]])
+        prevk = np.where(first, -1, np.concatenate([[0], k[:-1]]))
+        run = k - prevk - 1
+        zrl, r = run // 16, run % 16
+        s, extra = _magnitude(band[bi, k])
+        sym = r << 4 | s
+        keys.append(bi * 200 + 2 * k + 2)
+        codes.append(actab[comp[bi], 0, sym] << s | extra)
+        lens.append(actab[comp[bi], 1, sym] + s)
+        zi = np.repeat(np.arange(len(bi)), zrl)
+        keys.append(bi[zi] * 200 + 2 * k[zi] + 1)
+        codes.append(actab[comp[bi[zi]], 0, 0xF0])
+        lens.append(actab[comp[bi[zi]], 1, 0xF0])
+        last = np.full(n, -1)
+        np.maximum.at(last, bi, k)
+        eob = np.nonzero(last < width - 1)[0]
+        keys.append(eob * 200 + 199)
+        codes.append(actab[comp[eob], 0, 0])
+        lens.append(actab[comp[eob], 1, 0])
+    keys = np.concatenate(keys)
+    if any((ln == 0).any() for ln in lens):
+        raise ValueError("a coefficient past Annex K's Huffman tables")
+    order = np.argsort(keys, kind="stable")
+    return (np.concatenate(codes)[order], np.concatenate(lens)[order],
+            interval[keys[order] // 200])
+
+
+def _pack_scan(codes: np.ndarray, lens: np.ndarray, interval: np.ndarray) -> bytes:
+    """Entropy-coded bytes: each interval padded with 1 bits to a byte,
+    0xFF stuffed with 0x00, RSTn between intervals."""
+    n_int = int(interval.max()) + 1 if len(interval) else 1
+    bits_in = np.bincount(interval, weights=lens, minlength=n_int).astype(np.int64)
+    pad = -bits_in % 8
+    codes = np.concatenate([codes, (1 << pad) - 1])
+    lens = np.concatenate([lens, pad])
+    interval = np.concatenate([interval, np.arange(n_int)])
+    order = np.argsort(interval, kind="stable")
+    codes, lens = codes[order], lens[order]
+    total = int(lens.sum())
+    ev = np.repeat(np.arange(len(lens)), lens)
+    j = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+    raw = np.packbits(((codes[ev] >> (lens[ev] - 1 - j)) & 1).astype(np.uint8))
+    ends = np.cumsum((bits_in + pad) // 8)[:-1]
+    ff = np.nonzero(raw == 0xFF)[0]
+    out = np.insert(raw, ff + 1, 0)
+    ends = ends + np.searchsorted(ff, ends)
+    rst = 0xD0 + np.arange(len(ends)) % 8
+    return np.insert(out, np.repeat(ends, 2),
+                     np.stack([np.full(len(ends), 0xFF), rst], 1).reshape(-1)).astype(
+        np.uint8).tobytes()
+
+
+def jpeg_from_coefficients(blocks: list, width: int, height: int, sampling: list,
+                           quant: list, progressive: bool = False, restart: int = 0,
+                           adobe_rgb: bool = False, ids=None) -> bytes:
+    """A JPEG of quantised coefficients: blocks[c] [bh, bw, 64] int (zigzag
+    order, the component's whole MCU-padded grid), sampling[c] (h, v),
+    quant[c] [64] row-major (component 0 takes table 0, the others table 1).
+    Baseline (or progressive by JPEG_PROGRESSION) with Annex K's Huffman
+    tables, restart markers every `restart` MCUs, a JFIF APP0, or an Adobe
+    APP14 with transform 0 where `adobe_rgb`."""
+    import struct
+
+    n = len(blocks)
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    offsets = np.cumsum([0] + [b.shape[0] * b.shape[1] for b in blocks])
+    zz = np.concatenate([b.reshape(-1, 64) for b in blocks]).astype(np.int64)
+    seg = lambda marker, payload: struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload  # noqa: E731
+    out = b"\xff\xd8"
+    out += seg(0xEE, b"Adobe" + bytes([0, 100, 0, 0, 0, 0, 0])) if adobe_rgb else \
+        seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    tq = [0] + [1] * (n - 1)
+    for t in sorted(set(tq)):
+        c = tq.index(t)
+        out += seg(0xDB, bytes([t]) + np.asarray(quant[c])[_ZIGZAG].astype(np.uint8).tobytes())
+    ids = ids or ([82, 71, 66] if adobe_rgb else list(range(1, n + 1)))
+    out += seg(0xC2 if progressive else 0xC0, struct.pack(">BHHB", 8, height, width, n)
+               + b"".join(bytes([ids[c], sampling[c][0] << 4 | sampling[c][1], tq[c]])
+                          for c in range(n)))
+    for (cls, t), table in JPEG_HUFFMAN.items():
+        out += seg(0xC4, bytes([cls << 4 | t]) + bytes(table[0]) + bytes(table[1]))
+    if restart:
+        out += seg(0xDD, struct.pack(">H", restart))
+    tables = [(np.stack(_huffman_codes(JPEG_HUFFMAN[0, min(t, 1)])),
+               np.stack(_huffman_codes(JPEG_HUFFMAN[1, min(t, 1)]))) for t in tq]
+
+    def scan(comps, spec):
+        if len(comps) == 1:
+            c = comps[0]
+            h, v = sampling[c]
+            bw = -(-(-(-width * h // hmax)) // 8)
+            bh = -(-(-(-height * v // vmax)) // 8)
+            gy, gx = np.meshgrid(np.arange(bh), np.arange(bw), indexing="ij")
+            seq = (offsets[c] + gy * blocks[c].shape[1] + gx).reshape(-1)
+            comp = np.full(len(seq), c)
+            per = 1
+        else:
+            cols, comp = [], []
+            my, mx = [a.reshape(-1) for a in np.meshgrid(np.arange(mcuy), np.arange(mcux),
+                                                         indexing="ij")]
+            for c in comps:
+                h, v = sampling[c]
+                for dv in range(v):
+                    for dh in range(h):
+                        cols.append(offsets[c] + (my * v + dv) * blocks[c].shape[1] + mx * h + dh)
+                        comp.append(c)
+            per = len(cols)
+            seq, comp = np.stack(cols, 1).reshape(-1), np.tile(comp, mcux * mcuy)
+        mcu = np.arange(len(seq)) // per
+        interval = mcu // restart if restart else np.zeros(len(seq), np.int64)
+        ss, se, ah, al = spec
+        header = bytes([len(comps)]) + b"".join(
+            bytes([ids[c], tq[c] << 4 | tq[c]]) for c in comps) + bytes([ss, se, ah << 4 | al])
+        return seg(0xDA, header) + _pack_scan(*_scan_events(zz, seq, comp, interval, spec,
+                                                             tables))
+
+    if not progressive:
+        out += scan(list(range(n)), (0, 63, 0, 0))
+    else:
+        for spec in JPEG_PROGRESSION:
+            if spec[0] == 0:
+                out += scan(list(range(n)), spec)
+            else:
+                for c in range(n):
+                    out += scan([c], spec)
+    return out + b"\xff\xd9"
+
+
+def jpeg_bytes(pixels: np.ndarray, quality: int = 75, sampling=(2, 2),
+               progressive: bool = False, restart: int = 0, adobe_rgb: bool = False) -> bytes:
+    """A JPEG of [h, w, 3] RGB (YCbCr with chroma at 1/sampling, or RGB
+    components under Adobe's transform 0) or [h, w] gray uint8 pixels:
+    float DCT, IJG-scaled Annex K tables, Annex K Huffman tables."""
+    px = np.asarray(pixels, np.float64)
+    height, width = px.shape[:2]
+    if px.ndim == 2:
+        planes, factors = [px], [(1, 1)]
+    elif adobe_rgb:
+        planes, factors = [px[..., 0], px[..., 1], px[..., 2]], [(1, 1)] * 3
+    else:
+        r, g, b = px[..., 0], px[..., 1], px[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        factors = [tuple(sampling), (1, 1), (1, 1)]
+    hmax, vmax = max(h for h, _ in factors), max(v for _, v in factors)
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    dct = _dct_matrix()
+    blocks = []
+    for plane, (h, v) in zip(planes, factors):
+        # Box-average down to the component's grid (edges replicated to
+        # whole boxes), then replicate its edges to the MCU-padded grid.
+        fy, fx = vmax // v, hmax // h
+        ph, pw = -(-height // fy) * fy, -(-width // fx) * fx
+        full = np.pad(plane, ((0, ph - height), (0, pw - width)), mode="edge")
+        small = full.reshape(ph // fy, fy, pw // fx, fx).mean(axis=(1, 3))
+        gh, gw = mcuy * v * 8, mcux * h * 8
+        small = np.pad(small, ((0, gh - small.shape[0]), (0, gw - small.shape[1])), mode="edge")
+        tiles = small.reshape(gh // 8, 8, gw // 8, 8).transpose(0, 2, 1, 3) - 128
+        coef = dct @ tiles @ dct.T
+        q = jpeg_quant(quality, len(blocks) > 0 and not adobe_rgb)
+        blocks.append(np.round(coef.reshape(gh // 8, gw // 8, 64) / q)[..., _ZIGZAG]
+                      .astype(np.int64))
+    quant = [jpeg_quant(quality, c > 0 and not adobe_rgb) for c in range(len(planes))]
+    return jpeg_from_coefficients(blocks, width, height, factors, quant, progressive, restart,
+                                  adobe_rgb)
+
+
 # -- near-dup corpus (harness code) ------------------------------------------
 
 NEAR_DUP_THRESHOLD = 10      # the job's DEFAULT_THRESHOLD
 # Encodings of the corpus: every PNG colour type and depth the decoder
-# takes, and the three BMP forms.
+# takes, Adam7 and 16-bit PNG, the three BMP forms, JPEG (4:2:0, 4:2:2,
+# 4:4:4, gray, progressive, restart intervals, Adobe RGB), GIF (plain and
+# interlaced) and ICO (a PNG or a DIB frame beside a 16 px one).
 IMAGE_KINDS = ("png_rgb", "png_rgba", "png_gray", "png_la", "png_pal8", "png_pal4",
                "png_pal2", "png_pal1", "png_gray4", "png_gray2", "png_gray1",
-               "bmp24", "bmp32", "bmp8")
+               "bmp24", "bmp32", "bmp8", "jpeg_420", "jpeg_422", "jpeg_444", "jpeg_gray",
+               "jpeg_prog", "jpeg_rst", "jpeg_adobe", "gif", "gif_interlaced", "ico_png",
+               "ico_bmp", "png_adam7", "png_rgb16", "png_gray16", "png_rgba16")
+FORMATS = ("png", "bmp", "jpeg", "gif", "ico")
 CORPUS_DIR_FILES = 500
 # 6 x 6 x 6 colour cube: the 8-bit palette of the pal8 and bmp8 kinds.
 CUBE = np.stack(np.meshgrid(*[np.arange(6) * 51] * 3, indexing="ij"), -1).reshape(-1, 3)
@@ -1300,45 +1763,85 @@ def image_scene(rng, h: int, w: int, noise: float = 1.5) -> np.ndarray:
     return img + noise_like(rng, img.shape) * np.float32(noise)
 
 
+def kind_format(kind: str) -> str:
+    """The file format of an IMAGE_KINDS entry (one of FORMATS)."""
+    return kind.split("_")[0].rstrip("0123456789")
+
+
+def kind_extension(kind: str) -> str:
+    return {"jpeg": "jpg"}.get(kind_format(kind), kind_format(kind))
+
+
 def encode_image(rng, rgb: np.ndarray, kind: str, filters=None) -> tuple:
     """(file bytes, extension) of [h, w, 3] uint8 `rgb` as `kind`; PNG rows
-    take `filters` (one 0..4 per row; random when None)."""
+    take `filters` (one 0..4 per row; random when None). ICO kinds keep at
+    most 256 x 256 of the pixels."""
     from spacedrive_tpu_torch.media.imgdecode import l24
 
     h, w, _ = rgb.shape
     if filters is None:
         filters = (rng.integers(0, 5, h) if rng.random() < 0.5
                    else np.full(h, int(rng.integers(0, 5))))
+    ext = kind_extension(kind)
     if kind.startswith("bmp"):
         if kind == "bmp8":
             idx = (rgb.astype(np.int32) * 6 // 256) @ np.array([36, 6, 1])
-            return bmp_bytes(idx, palette=CUBE), "bmp"
+            return bmp_bytes(idx, palette=CUBE), ext
         alpha = rng.integers(0, 256, (h, w)) if kind == "bmp32" else None
-        return bmp_bytes(rgb, alpha=alpha, top_down=bool(rng.random() < 0.3)), "bmp"
+        return bmp_bytes(rgb, alpha=alpha, top_down=bool(rng.random() < 0.3)), ext
+    if kind.startswith("jpeg"):
+        quality = int(rng.integers(70, 96))
+        if kind == "jpeg_gray":
+            return jpeg_bytes(l24(rgb), quality), ext
+        sampling = {"jpeg_422": (2, 1), "jpeg_444": (1, 1)}.get(kind, (2, 2))
+        return jpeg_bytes(rgb, quality, sampling, progressive=kind == "jpeg_prog",
+                          restart=int(rng.integers(1, 9)) if kind == "jpeg_rst" else 0,
+                          adobe_rgb=kind == "jpeg_adobe"), ext
+    idx8 = ((rgb.astype(np.int32) * 6 // 256) @ np.array([36, 6, 1])).astype(np.uint8)
+    if kind.startswith("gif"):
+        return gif_bytes(idx8, CUBE, local=bool(rng.random() < 0.5),
+                         interlace=kind == "gif_interlaced"), ext
+    if kind.startswith("ico"):
+        px = rgb[:256, :256]
+        h, w = px.shape[:2]
+        if kind == "ico_png":
+            big = png_bytes(px.reshape(h, -1), w, 2, 8, filters[:h], level=1)
+        else:
+            big = dib_bytes(px, 32, alpha=rng.integers(0, 256, (h, w)))
+        small = dib_bytes(px[::max(1, h // 16), ::max(1, w // 16)][:16, :16], 24)
+        return ico_bytes([(small, min(16, w), min(16, h), 24), (big, w, h, 32)]), ext
     luma = l24(rgb)
-    if kind in ("png_rgb", "png_rgba"):
-        px = rgb if kind == "png_rgb" else np.concatenate(
+    if kind in ("png_rgb", "png_rgba", "png_adam7"):
+        px = rgb if kind != "png_rgba" else np.concatenate(
             [rgb, rng.integers(0, 256, (h, w, 1), dtype=np.uint8)], axis=2)
-        return png_bytes(px.reshape(h, -1), w, 2 if kind == "png_rgb" else 6, 8,
-                         filters, level=1), "png"
+        return png_bytes(px.reshape(h, -1), w, 6 if kind == "png_rgba" else 2, 8, filters,
+                         level=1, interlace=int(kind == "png_adam7")), ext
+    if kind in ("png_rgb16", "png_rgba16"):
+        px = rgb.astype(np.int64) * 257 + rng.integers(0, 2, (h, w, 3))
+        if kind == "png_rgba16":
+            px = np.concatenate([px, rng.integers(0, 1 << 16, (h, w, 1))], axis=2)
+        return png_bytes(png16_rows(px.reshape(h, -1)), w, 6 if kind == "png_rgba16" else 2,
+                         16, filters, level=1), ext
+    if kind == "png_gray16":  # I;16 clips past 255: a few such pixels
+        values = luma.astype(np.int64) + (rng.random((h, w)) < 0.01) * 1000
+        return png_bytes(png16_rows(values), w, 0, 16, filters, level=1), ext
     if kind == "png_gray":
-        return png_bytes(luma, w, 0, 8, filters, level=1), "png"
+        return png_bytes(luma, w, 0, 8, filters, level=1), ext
     if kind == "png_la":
         la = np.stack([luma, rng.integers(0, 256, (h, w), dtype=np.uint8)], axis=2)
-        return png_bytes(la.reshape(h, -1), w, 4, 8, filters, level=1), "png"
+        return png_bytes(la.reshape(h, -1), w, 4, 8, filters, level=1), ext
     if kind == "png_pal8":
-        idx = ((rgb.astype(np.int32) * 6 // 256) @ np.array([36, 6, 1])).astype(np.uint8)
         trns = rng.integers(0, 256, len(CUBE)).astype(np.uint8).tobytes() \
             if rng.random() < 0.3 else None
-        return png_bytes(idx, w, 3, 8, filters, palette=CUBE, trns=trns, level=1), "png"
+        return png_bytes(idx8, w, 3, 8, filters, palette=CUBE, trns=trns, level=1), ext
     depth = int(kind[-1])
     levels = luma.astype(np.int32) * (1 << depth) // 256
     if kind.startswith("png_pal"):
         ramp = np.arange(1 << depth) * 255 // ((1 << depth) - 1)
         palette = np.stack([ramp, ramp[::-1], ramp], axis=1)
         return png_bytes(pack_bits(levels, depth), w, 3, depth, filters,
-                         palette=palette, level=1), "png"
-    return png_bytes(pack_bits(levels, depth), w, 0, depth, filters, level=1), "png"
+                         palette=palette, level=1), ext
+    return png_bytes(pack_bits(levels, depth), w, 0, depth, filters, level=1), ext
 
 
 def plain_phash_of(rgb: np.ndarray) -> np.ndarray:
@@ -1349,6 +1852,14 @@ def plain_phash_of(rgb: np.ndarray) -> np.ndarray:
 
     grid = resize_lanczos(l24(rgb)).astype(np.float32)
     return phash_torch(grid[None], "cpu")[0]
+
+
+def plain_phash_of_file(data: bytes) -> np.ndarray:
+    """The pHash of an image file by the plain decoder and the CPU DCT."""
+    from spacedrive_tpu_torch.media.imgdecode import decode_grid
+    from spacedrive_tpu_torch.ops.phash import phash_torch
+
+    return phash_torch(decode_grid(data, native=False)[None], "cpu")[0]
 
 
 def _side(rng, lo_hi) -> int:
@@ -1366,18 +1877,25 @@ def _corpus_task(root: Path, seed: int, sides, task) -> tuple:
         scene = image_scene(rng, h, w)
         rgb = np.clip(scene, 0, 255).astype(np.uint8)
         base = plain_phash_of(rgb)
-        members = [(names[0], rgb, "png_rgb", np.zeros(h, np.int64)),
-                   (names[1], rgb, "png_rgb", np.full(h, 4)),
-                   (names[2], rgb, "bmp24", None)]
+        members = [(names[0], encode_image(rng, rgb, "png_rgb", np.zeros(h, np.int64))[0]),
+                   (names[1], encode_image(rng, rgb, "png_rgb", np.full(h, 4))[0]),
+                   (names[2], encode_image(rng, rgb, "bmp24")[0])]
         for _ in range(8):
             sigma = np.float32(rng.uniform(3, 6))
             noisy = np.clip(scene + noise_like(rng, scene.shape) * sigma, 0, 255).astype(np.uint8)
             if np.bitwise_count(plain_phash_of(noisy) ^ base).sum() <= NEAR_DUP_THRESHOLD:
-                members.append((names[3], noisy, "png_rgb", None))
+                members.append((names[3], encode_image(rng, noisy, "png_rgb")[0]))
                 break
             redrawn += 1
-        for path, px, enc, filters in members:
-            data = encode_image(rng, px, enc, filters)[0]
+        for _ in range(8):  # a JPEG re-encode, kept where the plain path agrees
+            data = jpeg_bytes(rgb, int(rng.integers(75, 96)),
+                              ((1, 1), (2, 1), (2, 2))[int(rng.integers(0, 3))],
+                              progressive=bool(rng.random() < 0.3))
+            if np.bitwise_count(plain_phash_of_file(data) ^ base).sum() <= NEAR_DUP_THRESHOLD:
+                members.append((names[4], data))
+                break
+            redrawn += 1
+        for path, data in members:
             (root / path).write_bytes(data)
             total += len(data)
             if path != names[0]:
@@ -1391,14 +1909,15 @@ def _corpus_task(root: Path, seed: int, sides, task) -> tuple:
         total = len(data)
     else:
         px = np.clip(image_scene(rng, 40, 60), 0, 255).astype(np.uint8)
-        if k % 3 == 0:
+        if k % 4 == 0:
             data = encode_image(rng, px, "png_rgb")[0]
             data = data[:int(rng.integers(16, len(data) - 20))]
-        elif k % 3 == 1:
-            data = png_bytes(px.reshape(40, -1), 60, 2, 8, np.zeros(40, np.int64),
-                             interlace=1)
-        else:
+        elif k % 4 == 1:
+            data = jpeg_bytes(px)[:-2]
+        elif k % 4 == 2:
             data = rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+        else:
+            data = jpeg_bytes(px).replace(b"\xff\xc0", b"\xff\xc9", 1)
         (root / names[0]).write_bytes(data)
         total = len(data)
     return total, planted, redrawn
@@ -1412,12 +1931,16 @@ def write_image_corpus(root: Path, n_files: int, groups: int, copies: int, refus
 
     - `groups` planted near-dup groups: a scene as RGB PNG, the same pixels
       re-encoded with other row filters (distance 0, other bytes) and as a
-      24-bit BMP (distance 0), and the scene with added noise of σ 3-6,
-      kept where the plain path puts it within the threshold of the
-      original (redrawn up to 8 times, else left out);
+      24-bit BMP (distance 0), the scene with added noise of σ 3-6 and a
+      JPEG of the scene (quality 75-95, any chroma sampling, some
+      progressive), each of the last two kept where the plain path puts it
+      within the threshold of the original (redrawn up to 8 times, else
+      left out);
     - `copies` byte-identical copies of other images (one object each);
-    - `refused` files the decoder must refuse: a truncated PNG, an
-      interlaced PNG, a .jpg of random bytes, in turn;
+    - `refused` files the decoder must refuse: a truncated PNG, a JPEG
+      without its EOI, a .jpg of random bytes, a JPEG whose frame header
+      claims arithmetic coding, in turn (PIL refuses the first three and
+      decodes the last as noise);
     - the rest, single images of every kind in IMAGE_KINDS in turn.
 
     Returns {"planted": [(path, path)], "refused": [path], "files", "bytes",
@@ -1431,12 +1954,12 @@ def write_image_corpus(root: Path, n_files: int, groups: int, copies: int, refus
         counter[0] += 1
         return f"d{k // CORPUS_DIR_FILES:03d}/img{k:06d}.{ext}"
 
-    tasks = [("group", g, [name("png"), name("png"), name("bmp"), name("png")])
+    tasks = [("group", g, [name("png"), name("png"), name("bmp"), name("png"), name("jpg")])
              for g in range(groups)]
-    singles = n_files - 4 * groups - copies - refused
-    tasks += [("single", k, [name("bmp" if IMAGE_KINDS[k % len(IMAGE_KINDS)][:3] == "bmp"
-                                  else "png")]) for k in range(singles)]
-    tasks += [("refused", k, [name("jpg" if k % 3 == 2 else "png")]) for k in range(refused)]
+    singles = n_files - 5 * groups - copies - refused
+    tasks += [("single", k, [name(kind_extension(IMAGE_KINDS[k % len(IMAGE_KINDS)]))])
+              for k in range(singles)]
+    tasks += [("refused", k, [name("jpg" if k % 4 else "png")]) for k in range(refused)]
     copy_of = {name(t[2][0].rsplit(".", 1)[1]): t[2][0]
                for t in tasks[groups:groups + copies]}
     for d in sorted({p.split("/")[0] for t in tasks for p in t[2]} |
@@ -1525,13 +2048,17 @@ COUNT_SHAPES = {"sweep": (4096, 16, 64), "refine": (256, 16, 4096)}
 
 
 @contextlib.contextmanager
-def recording(module, name: str, store: dict):
+def recording(module, name: str, store: dict, seconds: dict = None):
     """While open, each call ``module.name(path)`` stores its result in
-    `store` under `path` (a bracket around the decoder: it changes nothing)."""
+    `store` under `path`, and its wall time in `seconds` (a bracket around
+    the decoder: it changes nothing)."""
     fn = getattr(module, name)
 
     def recorded(path, *args, **kwargs):
+        t0 = time.perf_counter()
         out = fn(path, *args, **kwargs)
+        if seconds is not None:
+            seconds[path] = time.perf_counter() - t0
         store[path] = out
         return out
 
@@ -1546,7 +2073,8 @@ def run_near_dup_job(lib, location_id: int, counts: dict, key: str) -> tuple:
     """NearDupDetectorJob(backend="cuda") on a fresh JobManager, the launch
     counts reset just before and read just after, every grid the job
     decodes recorded and CUDA event pairs around each pHash on the card.
-    Returns (wall s, job report, {path: grid}, [pHash device ms per step])."""
+    Returns (wall s, job report, {path: grid}, {path: decode s}, [pHash
+    device ms per step])."""
     import asyncio
 
     from spacedrive_tpu_torch.jobs.manager import JobManager
@@ -1560,8 +2088,9 @@ def run_near_dup_job(lib, location_id: int, counts: dict, key: str) -> tuple:
         await jobs.wait_idle()
         return jid
 
-    grids, spans = {}, []
-    with recording(phash, "image_to_grid", grids), device_spans(phash, "phash_bits", spans):
+    grids, seconds, spans = {}, {}, []
+    with recording(phash, "image_to_grid", grids, seconds), \
+            device_spans(phash, "phash_bits", spans):
         torch.cuda.synchronize()
         blake3_cuda.reset_launches()
         hamming_cuda.reset_launches()
@@ -1571,7 +2100,7 @@ def run_near_dup_job(lib, location_id: int, counts: dict, key: str) -> tuple:
     counts[key] = {**blake3_cuda.launches, **hamming_cuda.launches}
     report = next(r for r in job_reports(lib) if r.id == jid)
     torch.cuda.synchronize()
-    return wall, report, grids, [start.elapsed_time(end) for start, end in spans]
+    return wall, report, grids, seconds, [start.elapsed_time(end) for start, end in spans]
 
 
 def corpus_executor():
@@ -1595,9 +2124,15 @@ def plain_grids(paths: list, executor) -> list:
                              chunksize=16))
 
 
+def file_format(path: str) -> str:
+    """The FORMATS entry of a corpus file, by its extension."""
+    ext = path.rsplit(".", 1)[-1]
+    return {"jpg": "jpeg"}.get(ext, ext)
+
+
 def check_near_dup_location(name: str, root: Path, lib, location_id: int, made: dict,
-                            wall: float, report, grids: dict, phash_device_ms: list,
-                            executor) -> dict:
+                            wall: float, report, grids: dict, seconds: dict,
+                            phash_device_ms: list, executor) -> dict:
     """The checks of one near-dup location; returns its numbers."""
     from spacedrive_tpu_torch.jobs.report import JobStatus
     from spacedrive_tpu_torch.ops import phash
@@ -1622,6 +2157,13 @@ def check_near_dup_location(name: str, root: Path, lib, location_id: int, made: 
     plain_decode_s = time.perf_counter() - t0
     require(all(g is not None and np.array_equal(g, decoded[p]) for p, g in zip(sample, plain)),
             f"{name}: native grids != the plain decoder's on the sample")
+    sample_formats = collections.Counter(file_format(p) for p in sample)
+    require(set(sample_formats) == set(FORMATS),
+            f"{name}: the plain sample holds {dict(sample_formats)}, not every format")
+    by_format = collections.defaultdict(list)
+    for p, dt in seconds.items():
+        if grids[p] is not None:
+            by_format[file_format(p)].append(dt)
     paths = sorted(state["hashes"])
     stored = np.stack([state["hashes"][p] for p in paths])
     g = np.stack([decoded[p] for p in paths])
@@ -1644,6 +2186,10 @@ def check_near_dup_location(name: str, root: Path, lib, location_id: int, made: 
                 redrawn=made["redrawn"], pairs=len(state["pairs"]), job_wall_s=wall,
                 images_per_s=report.metadata["hashed"] / wall, hash_steps=steps,
                 decode_ms_per_image=phase_s["decode"] / len(decoded) * 1e3,
+                decode_ms_per_image_by_format={
+                    f: float(np.mean(by_format[f])) * 1e3 for f in FORMATS},
+                images_by_format={f: len(by_format[f]) for f in FORMATS},
+                plain_sample_by_format=dict(sample_formats),
                 decode_s_per_step=phase_s["decode"] / steps,
                 phash_host_s_per_step=phase_s["phash"] / steps,
                 phash_device_ms_per_step=float(np.mean(phash_device_ms)),
@@ -1685,15 +2231,15 @@ def near_dup_location(workdir: Path, lib, name: str, spec: dict, seed: int, coun
     corpus_s = time.perf_counter() - t0
     location_id = locations.create_location(lib, str(root))
     scan_wall = run_scan(lib, location_id, counts, f"near_dup_scan_{name}", [])
-    wall, report, grids, phash_ms = run_near_dup_job(lib, location_id, counts,
-                                                     f"near_dup_job_{name}")
+    wall, report, grids, seconds, phash_ms = run_near_dup_job(lib, location_id, counts,
+                                                              f"near_dup_job_{name}")
     launches = counts[f"near_dup_job_{name}"][hamming_cuda.NEAR_MASK]
     count_launches = counts[f"near_dup_job_{name}"][hamming_cuda.NEAR_COUNTS]
     out = dict(corpus_write_s=corpus_s, scan_wall_s=scan_wall,
                hamming_near_mask_launches=launches,
                hamming_near_counts_launches=count_launches,
                **check_near_dup_location(name, root, lib, location_id, made, wall, report,
-                                         grids, phash_ms, executor))
+                                         grids, seconds, phash_ms, executor))
     # One mask launch when every digest fits one tile; the pyramid's count
     # launches past it.
     one_tile = out["objects_hashed"] <= 4096

@@ -11,6 +11,8 @@
 //   vectorise them (media/imgdecode.png_unfilter_plain, a Python byte loop,
 //   costs about a second per megapixel);
 // - PIL's RGB -> L conversion (L24, Convert.c rgb2l) over any pixel layout;
+// - the LZW decoder of a GIF frame's image data (media/gif.py; its plain
+//   version, lzw_plain, a Python loop over codes);
 // - PIL's LANCZOS resample of an L image (Resample.c: precompute_coeffs,
 //   normalize_coeffs_8bpc, the 8bpc horizontal then vertical pass), which
 //   touches only each output's taps; the plain version is a float64 matrix
@@ -213,6 +215,69 @@ void sd_resample_lanczos(const uint8_t* in, int64_t h, int64_t w, int64_t edge,
       out[yy * edge + xx] = clip8(ss);
     }
   }
+}
+
+// GIF LZW: `data` (n bytes, the frame's sub-blocks joined) at minimum code
+// size `min_size` -> out[npixels] palette indices, codes read LSB first,
+// the code size growing to 12 as the table fills, a full table kept until
+// the next clear. Returns 0 once out is full (later codes are not read),
+// 1 if the data or an end code comes first, 2 on a code past the table.
+int64_t sd_gif_lzw(const uint8_t* data, int64_t n, int64_t min_size, uint8_t* out,
+                   int64_t npixels) {
+  static thread_local uint16_t prefix[4096];
+  static thread_local uint8_t suffix[4096], first[4096];
+  static thread_local uint8_t stack[4096];
+  const int clear = 1 << min_size, end = clear + 1;
+  for (int c = 0; c < clear; ++c) {
+    suffix[c] = first[c] = (uint8_t)c;
+  }
+  int size = (int)min_size + 1, next = clear + 2, prev = -1;
+  int64_t bitpos = 0, filled = 0;
+  while (filled < npixels) {
+    if (bitpos + size > 8 * n) return 1;
+    uint32_t code = 0;
+    for (int b = 0; b < size; ++b, ++bitpos)
+      code |= (uint32_t)((data[bitpos >> 3] >> (bitpos & 7)) & 1) << b;
+    if ((int)code == clear) {
+      size = (int)min_size + 1;
+      next = clear + 2;
+      prev = -1;
+      continue;
+    }
+    if ((int)code == end) return 1;
+    if (prev < 0) {
+      if ((int)code > clear) return 2;
+      out[filled++] = (uint8_t)code;
+      prev = (int)code;
+      continue;
+    }
+    int c = (int)code, top = 0;
+    uint8_t head;
+    if (c < next) {
+      head = first[c];
+    } else if (c == next) {
+      head = first[prev];
+      stack[top++] = head;
+      c = prev;
+    } else {
+      return 2;
+    }
+    while (c >= clear) {
+      stack[top++] = suffix[c];
+      c = prefix[c];
+    }
+    stack[top++] = (uint8_t)c;
+    while (top > 0 && filled < npixels) out[filled++] = stack[--top];
+    if (next < 4096) {
+      prefix[next] = (uint16_t)prev;
+      suffix[next] = head;
+      first[next] = first[prev];
+      ++next;
+      if (next == (1 << size) && size < 12) ++size;
+    }
+    prev = (int)code;
+  }
+  return 0;
 }
 
 }  // extern "C"

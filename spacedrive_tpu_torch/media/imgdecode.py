@@ -1,24 +1,35 @@
-"""PNG and BMP to the 32×32 grayscale grid that pHash reads, as PIL gives it.
+"""Image files to the 32×32 grayscale grid that pHash reads, as PIL gives it.
 
 The port's counterpart of ``image_to_grid`` in ``spacedrive_tpu/ops/phash.py``
 (``PIL.Image.open(p).convert("L").resize((32, 32), Image.LANCZOS)``). The
 machine with the card has no PIL, and a pHash bit flips when one grid value
 moves by one, so this decoder gives PIL's grid bit for bit on what it takes
-and raises ``UnsupportedImage`` on everything else:
+and raises ``UnsupportedImage`` on everything else. The format is read
+from the bytes' signature, as PIL finds it, never from the file's name:
 
-- PNG, not interlaced, 8-bit gray, RGB, palette, gray + alpha and RGBA, and
-  palette or gray at 1, 2 or 4 bits; chunk CRCs are checked, IDAT is
-  inflated with ``zlib``, rows are unfiltered (None, Sub, Up, Average,
-  Paeth) by ``csrc/imgdec.cpp``;
-- BMP, uncompressed, at 24 and 32 bits and 8-bit palette (3 to 256 colours).
+- PNG, 8-bit gray, RGB, palette, gray + alpha and RGBA, palette or gray at
+  1, 2 or 4 bits, and gray, RGB, gray + alpha and RGBA at 16 bits, plain or
+  Adam7-interlaced; chunk CRCs are checked, IDAT is inflated with ``zlib``,
+  rows are unfiltered (None, Sub, Up, Average, Paeth) by
+  ``csrc/imgdec.cpp``, one Adam7 pass at a time;
+- BMP, uncompressed, at 24 and 32 bits and 8-bit palette (3 to 256 colours);
+- JPEG, baseline, extended and progressive, one or three components
+  (``media/jpeg.py``, ``csrc/jpegdec.cpp``);
+- GIF, the first frame (``media/gif.py``, its LZW in ``csrc/imgdec.cpp``);
+- ICO, the frame PIL takes: a PNG frame as above, or a DIB at 1, 4, 8, 24
+  or 32 bits.
 
-JPEG, GIF, TIFF, WebP, HEIF, 16-bit or interlaced PNG, BMP bit fields or RLE
-raise. What PIL does, and this module with it:
+TIFF, WebP, HEIF/AVIF, BMP bit fields or RLE, 1/4-bit BMP files, ≤ 2-colour
+8-bit BMP, and what ``media/jpeg.py`` and ``media/gif.py`` list raise.
+What PIL does, and this module with it:
 
 - to L: RGB, RGBA and BGR(X) pixels go through ``L24``,
   ``(R·19595 + G·38470 + B·7471 + 0x8000) >> 16``, alpha is dropped, a
   palette index through ``L24`` of its entry, 1/2/4-bit gray expands to
-  0..255 (×255, ×0x55, ×0x11); transparency (tRNS) never changes L;
+  0..255 (×255, ×0x55, ×0x11), 16-bit gray (``I;16``) clips at 255, 16-bit
+  colour keeps each sample's high byte (``RGB;16B``, ``RGBA;16B``,
+  ``LA;16B``); transparency (tRNS, GIF's transparent index) never changes
+  L;
 - LANCZOS: separable, support 3 scaled by the reduction factor, weights
   normalised in double and rounded to 22-bit fixed point, a horizontal pass
   rounded and clipped to uint8, then the vertical pass; a side already 32
@@ -26,9 +37,11 @@ raise. What PIL does, and this module with it:
   integer values: every product is below 2**30 and every sum below 2**53,
   so BLAS carries it exactly in any order.
 
-``png_unfilter_plain`` is the plain version of the native unfilter: the
-tests and ``chip_smoke.py`` decode with ``native=False`` to hold one
-against the other; nothing on the main path runs it.
+``native=False`` runs the plain versions of the native passes
+(``png_unfilter_plain``, ``l24``, ``resize_lanczos``,
+``jpeg.decode_plain``, ``gif.lzw_plain``): the tests and ``chip_smoke.py``
+decode with it to hold one against the other; nothing on the main path
+runs them, and no fault of the native plane falls back to them.
 """
 
 from __future__ import annotations
@@ -51,10 +64,16 @@ MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type → channels, and the bit depths each allows here.
 PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-PNG_DEPTHS = {0: (1, 2, 4, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
+PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's passes: (first column, first row, column step, row step).
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
 # PIL's unpackers of 1/2/4-bit gray ("1", "L;2", "L;4") scale to 0..255.
 GRAY_SCALE = {1: 255, 2: 0x55, 4: 0x11, 8: 1}
 BMP_HEADERS = (40, 52, 56, 64, 108, 124)  # BITMAPINFOHEADER .. V5
+JPEG_SIGNATURE = b"\xff\xd8\xff"
+GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
+ICO_SIGNATURE = b"\x00\x00\x01\x00"
 
 
 class UnsupportedImage(ValueError):
@@ -63,8 +82,9 @@ class UnsupportedImage(ValueError):
 
 def image_to_grid(path: str, *, native: bool = True) -> Optional[np.ndarray]:
     """Decode + grayscale + resize to [32, 32] float32; None when the file
-    cannot be read or is not a supported PNG or BMP. A fault of the native
-    plane (its build or load, or a wrapper's argument check) raises."""
+    cannot be read or is not an image this module takes. A fault of the
+    native plane (its build or load, or a wrapper's argument check)
+    raises."""
     try:
         with open(path, "rb") as f:
             data = f.read()
@@ -78,8 +98,8 @@ def image_to_grid(path: str, *, native: bool = True) -> Optional[np.ndarray]:
 
 def decode_grid(data: bytes, *, native: bool = True) -> np.ndarray:
     """Image bytes → [32, 32] float32 grid; raises UnsupportedImage.
-    `native` runs the unfilter, L24 and resample of ``csrc/imgdec.cpp``;
-    False runs their plain versions here."""
+    `native` runs the native decoders and passes of ``csrc/imgdec.cpp`` and
+    ``csrc/jpegdec.cpp``; False runs their plain versions."""
     luma = decode_luma(data, native=native)
     if native:
         from .. import native as plane
@@ -88,12 +108,31 @@ def decode_grid(data: bytes, *, native: bool = True) -> np.ndarray:
 
 
 def decode_luma(data: bytes, *, native: bool = True) -> np.ndarray:
-    """Image bytes → [h, w] uint8, PIL's ``convert("L")``."""
+    """Image bytes → [h, w] uint8, PIL's ``convert("L")``. The format is
+    the one the bytes' signature names, as PIL finds it; the file's name
+    plays no part."""
     if data[:8] == PNG_SIGNATURE:
         return _png_luma(data, native)
     if data[:2] == b"BM":
         return _bmp_luma(data, native)
-    raise UnsupportedImage("not a PNG or BMP")
+    if data[:3] == JPEG_SIGNATURE:
+        return _jpeg_luma(data, native)
+    if data[:6] in GIF_SIGNATURES:
+        from . import gif
+        return gif.decode_luma(data, native)
+    if data[:4] == ICO_SIGNATURE:
+        return _ico_luma(data, native)
+    raise UnsupportedImage("not a PNG, BMP, JPEG, GIF or ICO")
+
+
+def _jpeg_luma(data: bytes, native: bool) -> np.ndarray:
+    from . import jpeg
+    if native:
+        from .. import native as plane
+        px = plane.jpeg_decode(data)
+    else:
+        px = jpeg.decode_plain(data)
+    return px if px.ndim == 2 else _rgb_to_l(px, (0, 1, 2), native)
 
 
 def _rgb_to_l(pixels: np.ndarray, order, native: bool) -> np.ndarray:
@@ -110,7 +149,7 @@ def l24(rgb: np.ndarray) -> np.ndarray:
     return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(np.uint8)
 
 
-def _check_size(w: int, h: int) -> None:
+def check_size(w: int, h: int) -> None:
     if w < 1 or h < 1 or w * h > MAX_PIXELS:
         raise UnsupportedImage(f"image size {w}x{h}")
 
@@ -177,38 +216,63 @@ def _png_luma(data: bytes, native: bool) -> np.ndarray:
     w, h, depth, ctype, compression, filtering, interlace = header
     if ctype not in PNG_CHANNELS or depth not in PNG_DEPTHS[ctype]:
         raise UnsupportedImage(f"PNG colour type {ctype} at {depth} bits")
-    if compression or filtering or interlace:
-        raise UnsupportedImage("interlaced or non-standard PNG")
-    _check_size(w, h)
+    if compression or filtering or interlace > 1:
+        raise UnsupportedImage("non-standard PNG")
+    check_size(w, h)
     if ctype == 3 and palette is None:
         raise UnsupportedImage("palette PNG without PLTE")
     channels = PNG_CHANNELS[ctype]
+    passes = ([(x0, y0, dx, dy, -(-(w - x0) // dx), -(-(h - y0) // dy))
+               for x0, y0, dx, dy in ADAM7 if w > x0 and h > y0] if interlace
+              else [(0, 0, 1, 1, w, h)])
+    sizes = [ph * (1 + (pw * channels * depth + 7) // 8) for *_, pw, ph in passes]
+    inflater = zlib.decompressobj()
+    raw = inflater.decompress(b"".join(idat), sum(sizes))
+    if len(raw) < sum(sizes):
+        raise UnsupportedImage("truncated PNG image data")
+    # Samples: [h, w] of one channel at up to 8 bits, else [h, w, bytes
+    # per pixel].
+    shape = (h, w) if channels == 1 and depth <= 8 else (h, w, channels * depth // 8)
+    pix = np.zeros(shape, np.uint8) if interlace else None
+    offset = 0
+    for (x0, y0, dx, dy, pw, ph), size in zip(passes, sizes):
+        sub = _png_samples(raw[offset:offset + size], pw, ph, channels, depth, native)
+        offset += size
+        if not interlace:
+            pix = sub
+        else:
+            pix[y0::dy, x0::dx] = sub
+    if ctype == 0:
+        if depth == 16:  # I;16 to L clips, PIL's I16_L
+            return np.where(pix[..., 0] > 0, 255, pix[..., 1]).astype(np.uint8)
+        return pix * np.uint8(GRAY_SCALE[depth])
+    if ctype == 3:
+        if int(pix.max()) >= len(palette):
+            raise UnsupportedImage("palette index past PLTE")
+        return l24(palette)[pix]
+    if ctype == 4:  # LA, or LA;16B unpacked to RGBA: the gray's high byte
+        return pix[..., 0].copy()
+    step = depth // 8  # high bytes of RGB;16B and RGBA;16B
+    return _rgb_to_l(pix, (0, step, 2 * step), native)
+
+
+def _png_samples(raw: bytes, w: int, h: int, channels: int, depth: int,
+                 native: bool) -> np.ndarray:
+    """One (sub)image's filtered scanlines → [h, w] uint8 values of one
+    channel at up to 8 bits, else [h, w, bytes per pixel] uint8."""
     rowbytes = (w * channels * depth + 7) // 8
     bpp = max(1, channels * depth // 8)
-    need = h * (rowbytes + 1)
-    inflater = zlib.decompressobj()
-    raw = inflater.decompress(b"".join(idat), need)
-    if len(raw) < need:
-        raise UnsupportedImage("truncated PNG image data")
     if native:
         from .. import native as plane
         rows = plane.png_unfilter(raw, h, rowbytes, bpp)
     else:
         rows = png_unfilter_plain(raw, h, rowbytes, bpp)
-
     if depth < 8:
         per = 8 // depth
         shifts = (8 - depth) - depth * np.arange(per, dtype=np.uint8)
         values = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
-        rows = values.reshape(h, rowbytes * per)[:, :w]
-    if ctype == 0:
-        return rows * np.uint8(GRAY_SCALE[depth])
-    if ctype == 3:
-        if int(rows.max()) >= len(palette):
-            raise UnsupportedImage("palette index past PLTE")
-        return l24(palette)[rows]
-    pixels = rows.reshape(h, w, channels)
-    return pixels[..., 0].copy() if ctype == 4 else _rgb_to_l(pixels, (0, 1, 2), native)
+        return values.reshape(h, rowbytes * per)[:, :w]
+    return rows if channels * depth == 8 else rows.reshape(h, w, bpp)
 
 
 def _paeth(a: int, b: int, c: int) -> int:
@@ -269,7 +333,7 @@ def _bmp_luma(data: bytes, native: bool) -> np.ndarray:
     if compression != 0 or planes != 1 or bits not in (8, 24, 32):
         raise UnsupportedImage(
             f"BMP at {bits} bits, compression {compression}, {planes} planes")
-    _check_size(w, h)
+    check_size(w, h)
     if bits == 8:
         if not 3 <= colors <= 256 or 14 + header_size + 4 * colors > len(data):
             raise UnsupportedImage(f"8-bit BMP with {colors} colours")
@@ -289,6 +353,86 @@ def _bmp_luma(data: bytes, native: bool) -> np.ndarray:
         pixels = rows[:, :w * (bits // 8)].reshape(h, w, bits // 8)
         luma = _rgb_to_l(pixels, (2, 1, 0), native)
     return luma if top_down else luma[::-1]
+
+
+# -- ICO ---------------------------------------------------------------------
+
+
+def _ico_luma(data: bytes, native: bool) -> np.ndarray:
+    """The frame PIL's IcoImagePlugin takes: the largest by width × height,
+    among those the least colour depth, first in the directory among
+    equals; a PNG frame through the PNG path, a DIB frame below."""
+    if len(data) < 6:
+        raise UnsupportedImage("truncated ICO header")
+    count = struct.unpack_from("<H", data, 4)[0]
+    if not count or len(data) < 6 + 16 * count:
+        raise UnsupportedImage("ICO without a whole directory")
+    entries = []
+    for i in range(count):
+        w, h, nb_color, _, _, bpp, size, offset = struct.unpack_from("<BBBBHHII", data, 6 + 16 * i)
+        w, h = w or 256, h or 256
+        depth = bpp or (nb_color != 0 and math.ceil(math.log(nb_color, 2))) or 256
+        entries.append((w * h, depth, bpp, size, offset))
+    entries = sorted(sorted(entries, key=lambda e: e[1]), key=lambda e: e[0], reverse=True)
+    _, _, bpp, size, offset = entries[0]
+    frame = data[offset:]
+    if frame[:8] == PNG_SIGNATURE:
+        return _png_luma(frame, native)
+    return _ico_dib_luma(data, offset, bpp, size, native)
+
+
+def _ico_dib_luma(data: bytes, offset: int, entry_bpp: int, entry_size: int,
+                  native: bool) -> np.ndarray:
+    """A DIB frame (header, palette, XOR bitmap of half the header's height,
+    AND mask), as PIL's DibImageFile reads it and ``convert("RGBA")``
+    gives it: L24 of each pixel's colour. Uncompressed 1, 4, 8, 24 and 32
+    bits; PIL reads a grey palette as raw L or 1 bytes, which is right only
+    at 8 bits and 1 bit, so other such palettes are refused."""
+    if offset + 40 > len(data):
+        raise UnsupportedImage("truncated ICO frame")
+    header_size, w, h_raw, planes, bits, compression, _, _, _, colors = struct.unpack_from(
+        "<IiIHHIIiiI", data, offset)
+    if header_size not in BMP_HEADERS or offset + header_size > len(data):
+        raise UnsupportedImage(f"ICO frame DIB header of {header_size} bytes")
+    if compression != 0 or bits not in (1, 4, 8, 24, 32) or data[offset + 11] == 0xFF:
+        raise UnsupportedImage(f"ICO frame DIB at {bits} bits, compression {compression}")
+    check_size(w, h_raw)
+    h = h_raw // 2
+    check_size(w, h)
+    pos = offset + header_size
+    if bits <= 8:
+        colors = colors or 1 << bits
+        if not 0 < colors <= 256 or pos + 4 * colors > len(data):
+            raise UnsupportedImage(f"ICO frame DIB with {colors} colours")
+        table = np.frombuffer(data, np.uint8, 4 * colors, pos).reshape(-1, 4)[:, 2::-1]
+        pos += 4 * colors
+        grey = (0, 255) if colors == 2 else range(colors)
+        if all((table[i] == v).all() for i, v in enumerate(grey)) and \
+                bits != (1 if colors == 2 else 8):
+            raise UnsupportedImage(f"ICO frame DIB: grey palette at {bits} bits")
+    stride = ((w * bits + 31) >> 3) & ~3
+    if pos + stride * h > len(data):
+        raise UnsupportedImage("truncated ICO frame pixels")
+    if entry_bpp == 32:
+        mask_end = pos + w * h * 4  # PIL reads the alpha bytes from here
+    else:
+        mask_bytes = -(-w // 32) * 32 * h // 8
+        mask_end = offset + entry_size
+        if mask_end - mask_bytes < 0:
+            raise UnsupportedImage("ICO frame AND mask before the file")
+    if mask_end > len(data):
+        raise UnsupportedImage("truncated ICO frame mask")
+    rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(h, stride)
+    if bits > 8:  # bottom-up rows
+        pixels = rows[:, :w * (bits // 8)].reshape(h, w, bits // 8)
+        return _rgb_to_l(pixels, (2, 1, 0), native)[::-1]
+    rows = rows[::-1]
+    per = 8 // bits
+    shifts = (8 - bits) - bits * np.arange(per, dtype=np.uint8)
+    idx = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(h, -1)[:, :w]
+    if int(idx.max()) >= colors:
+        raise UnsupportedImage("ICO frame palette index past its table")
+    return l24(np.ascontiguousarray(table))[idx]
 
 
 # -- LANCZOS resample --------------------------------------------------------

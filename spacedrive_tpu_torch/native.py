@@ -1,5 +1,6 @@
 """ctypes bindings to the port's native host code: the staging plane
-(csrc/sdio_stage.cpp) and the PNG unfilter (csrc/imgdec.cpp).
+(csrc/sdio_stage.cpp) and the image decoders (csrc/imgdec.cpp: the PNG
+unfilter, L24, LANCZOS and the GIF LZW; csrc/jpegdec.cpp: JPEG).
 
 Port of the staging half of ``spacedrive_tpu/native/__init__.py``: batched
 file reads into dense rows by a pool of C++ threads over pread/mmap, with
@@ -182,3 +183,46 @@ def resample_lanczos(l8: np.ndarray, edge: int) -> np.ndarray:
     _build.library("imgdec").sd_resample_lanczos(
         _ptr(l8, ctypes.c_uint8), h, w, edge, _ptr(out, ctypes.c_uint8))
     return out
+
+
+def gif_lzw(data: bytes, min_size: int, npixels: int) -> np.ndarray:
+    """A GIF frame's LZW data (its sub-blocks joined) → [npixels] uint8
+    palette indices; UnsupportedImage where the data or an end code comes
+    before the frame is full, or a code lies past the table. The plain
+    version is ``media.gif.lzw_plain``."""
+    from .media.gif import LZW_MESSAGES
+    from .media.imgdecode import UnsupportedImage
+
+    if not 2 <= min_size <= 8 or npixels < 0:
+        raise ValueError(f"gif_lzw: minimum code size {min_size}, {npixels} pixels")
+    src = np.frombuffer(data, np.uint8)
+    out = np.empty(npixels, np.uint8)
+    status = _build.library("imgdec").sd_gif_lzw(
+        _ptr(src, ctypes.c_uint8), src.size, min_size, _ptr(out, ctypes.c_uint8), npixels)
+    if status:
+        raise UnsupportedImage(LZW_MESSAGES[status])
+    return out
+
+
+def jpeg_decode(data: bytes) -> np.ndarray:
+    """JPEG bytes → [h, w] uint8 L (one component) or [h, w, 3] uint8 RGB,
+    libjpeg-turbo's samples, in one call of csrc/jpegdec.cpp;
+    UnsupportedImage with ``media.jpeg.REASONS``' reason where it refuses.
+    The plain version is ``media.jpeg.decode_plain``."""
+    from .media.imgdecode import MAX_PIXELS, UnsupportedImage
+    from .media.jpeg import REASONS
+
+    lib = _build.library("jpegdec")
+    src = np.frombuffer(data, np.uint8)
+    dims = np.zeros(3, np.int64)
+    status = lib.sd_jpeg_header(_ptr(src, ctypes.c_uint8), src.size, MAX_PIXELS,
+                                _ptr(dims, ctypes.c_int64))
+    if status:
+        raise UnsupportedImage(REASONS[status])
+    w, h, c = (int(v) for v in dims)
+    out = np.empty((h, w, c), np.uint8)
+    status = lib.sd_jpeg_decode(_ptr(src, ctypes.c_uint8), src.size, MAX_PIXELS,
+                                _ptr(out, ctypes.c_uint8))
+    if status:
+        raise UnsupportedImage(REASONS[status])
+    return out[..., 0] if c == 1 else out

@@ -14,8 +14,10 @@ the pyramid past it), at any N. ``"plain"`` runs the same torch code on the
 CPU, exact up to ``ALL_PAIRS_LIMIT`` digests and LSH banding past it, which
 is what the JAX package does without a TPU. Nothing routes card work to the
 CPU. Images are decoded on the host by ``media/imgdecode.py`` under either
-backend; a file it refuses (see that module for what it takes) is a job
-error, ``phash decode failed: <path>``, as in the JAX package. Any other
+backend (PNG, BMP, JPEG, GIF and ICO, read by their bytes, to PIL's grid);
+a file it refuses (TIFF, WebP, HEIF and the rest that module lists) is a
+job error, ``phash decode failed: <path>``, as in the JAX package where
+PIL refuses it too. Any other
 failure of a hash step (the native plane's build or load, the card) is no
 file's fault and fails the job.
 """

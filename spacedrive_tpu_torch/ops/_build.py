@@ -5,7 +5,7 @@ into a shared library, loaded with ``ctypes``:
 
 - ``csrc/<name>.cu`` by ``nvcc`` for ``sm_90a`` (the CUDA kernels);
 - ``csrc/<name>.cpp`` by ``g++`` (host code: the native staging plane and
-  the PNG unfilter).
+  the image decoders).
 
 The library's name carries a hash of the source and the flags, so an
 edited source is rebuilt and a stale library is never loaded. The flags
@@ -48,6 +48,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int32)
+_i64p = ctypes.POINTER(ctypes.c_int64)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
 _charpp = ctypes.POINTER(ctypes.c_char_p)
 
@@ -89,6 +90,14 @@ _SIGNATURES = {
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], None),
         "sd_resample_lanczos": (
             [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], None),
+        "sd_gif_lzw": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, _u8p, ctypes.c_int64], ctypes.c_int64),
+    },
+    "jpegdec": {
+        "sd_jpeg_header": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, _i64p], ctypes.c_int64),
+        "sd_jpeg_decode": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
     },
     "sdio_stage": {
         "sd_stage_large": (

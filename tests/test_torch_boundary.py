@@ -88,9 +88,10 @@ def test_scan_covers_the_staging_plane_the_ring_and_the_scan_chain():
             port / "jobs" / "worker.py", port / "locations" / "manager.py",
             port / "objects" / "identifier.py", port / "media" / "imgdecode.py",
             port / "ops" / "phash.py", port / "ops" / "hamming.py",
-            port / "ops" / "hamming_cuda.py", port / "objects" / "dedup.py"} <= set(PORT_FILES)
+            port / "ops" / "hamming_cuda.py", port / "objects" / "dedup.py",
+            port / "media" / "jpeg.py", port / "media" / "gif.py"} <= set(PORT_FILES)
     assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp",
-                                                 "hamming.cu", "imgdec.cpp"}
+                                                 "hamming.cu", "imgdec.cpp", "jpegdec.cpp"}
 
 
 def _foreign_includes(path: Path, text: str):

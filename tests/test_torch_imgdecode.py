@@ -2,13 +2,14 @@
 
 ``spacedrive_tpu_torch/media/imgdecode.py`` must give the 32×32 grid of
 ``PIL.Image.open(p).convert("L").resize((32, 32), Image.LANCZOS)`` (the JAX
-package's ``image_to_grid``) on every PNG and BMP it takes, through its
-native C++ passes and through their plain versions, and raise on everything
-else. Images of 1–80 px a side come from hypothesis through the test-side
-writer in ``chip_smoke.py`` (every colour type and depth, the row filter
-forced per row), and from PIL's own encoders; larger PIL-saved images
-cover the downscales the near-dup corpus has. Tests may import PIL; port
-files may not.
+package's ``image_to_grid``) on every PNG, BMP, GIF and ICO it takes (JPEG
+has ``tests/test_torch_jpeg.py``), through its native C++ passes and
+through their plain versions, and raise on everything else. Images of
+1–80 px a side come from hypothesis through the test-side writers in
+``chip_smoke.py`` (every PNG colour type and depth, 16-bit included,
+Adam7 or not, the row filter forced per row), and from PIL's own encoders;
+larger PIL-saved images cover the downscales the near-dup corpus has.
+Tests may import PIL; port files may not.
 """
 
 import io
@@ -59,10 +60,14 @@ def png_images(draw):
         values = rng.integers(0, 1 << depth, (h, w * channels))
         if draw(st.booleans()) and ctype in (0, 2):
             trns = struct.pack(">" + "H" * channels, *rng.integers(0, 1 << depth, channels))
-    rows = chip_smoke.pack_bits(values, depth) if depth < 8 else values.astype(np.uint8)
+    if depth < 8:
+        rows = chip_smoke.pack_bits(values, depth)
+    else:
+        rows = chip_smoke.png16_rows(values) if depth == 16 else values.astype(np.uint8)
     filters = np.array(draw(st.lists(st.integers(0, 4), min_size=h, max_size=h)))
     return chip_smoke.png_bytes(rows, w, ctype, depth, filters, palette=palette, trns=trns,
-                                level=draw(st.integers(0, 9)))
+                                level=draw(st.integers(0, 9)),
+                                interlace=int(draw(st.booleans())))
 
 
 @settings(max_examples=40, deadline=None)
@@ -98,6 +103,103 @@ def test_pil_saved_images_are_pils(fmt, mode, w, h):
     im = base.convert("RGB").quantize(77) if mode == "P" else base.convert(mode)
     buf = io.BytesIO()
     im.save(buf, fmt)
+    assert_pils(buf.getvalue())
+
+
+@pytest.mark.parametrize("ctype,depth", PNG_FORMS)
+@pytest.mark.parametrize("interlace", [0, 1])
+@pytest.mark.parametrize("w,h", [(1, 1), (3, 2), (9, 7), (37, 41)])
+def test_adam7_and_16bit_pngs_are_pils(ctype, depth, interlace, w, h):
+    """Every colour type and depth, Adam7 or not, at sizes whose passes are
+    empty, partial and whole; 16-bit gray with values past 255 (PIL's
+    I;16 clips)."""
+    rng = np.random.default_rng(ctype * 100 + depth + interlace * 7 + w)
+    channels = chip_smoke.PNG_CHANNELS[ctype]
+    palette = None
+    if ctype == 3:
+        palette = rng.integers(0, 256, (1 << min(depth, 7), 3))
+        values = rng.integers(0, len(palette), (h, w))
+    else:
+        values = rng.integers(0, 1 << depth, (h, w * channels))
+        if (ctype, depth) == (0, 16):
+            values = np.where(rng.random((h, w)) < 0.5, rng.integers(0, 300, (h, w)), values)
+    if depth < 8:
+        rows = chip_smoke.pack_bits(values, depth)
+    else:
+        rows = chip_smoke.png16_rows(values) if depth == 16 else values.astype(np.uint8)
+    assert_pils(chip_smoke.png_bytes(rows, w, ctype, depth, rng.integers(0, 5, h),
+                                     palette=palette, interlace=interlace))
+
+
+@pytest.mark.parametrize("case", ["global", "local", "interlaced", "local_interlaced",
+                                  "screen_past_frame", "transparent_fill",
+                                  "frame_past_screen", "identity_palette", "two_colours"])
+@pytest.mark.parametrize("w,h", [(1, 1), (13, 9), (70, 45)])
+def test_gif_grids_are_pils(case, w, h):
+    """The first frame of GIFs from the harness writer: a global or local
+    palette, interlaced rows, a frame smaller than the screen (the rest
+    index 0, or the transparent index), a frame past the screen (the
+    screen grows), the identity palette (PIL opens that as L)."""
+    rng = np.random.default_rng(w * h)
+    k = 2 if case == "two_colours" else 200
+    palette = np.repeat(np.arange(256)[:, None], 3, 1) if case == "identity_palette" else \
+        rng.integers(0, 256, (k, 3))
+    indices = rng.integers(0, len(palette), (h, w))
+    kw = {"global": {}, "local": {"local": True}, "interlaced": {"interlace": True},
+          "local_interlaced": {"local": True, "interlace": True},
+          "screen_past_frame": {"screen": (w + 6, h + 2), "offset": (3, 1)},
+          "transparent_fill": {"screen": (w + 4, h + 5), "offset": (0, 5),
+                               "transparency": 7},
+          "frame_past_screen": {"screen": (max(1, w // 2), max(1, h // 2)), "offset": (2, 3)},
+          "identity_palette": {}, "two_colours": {}}[case]
+    assert_pils(chip_smoke.gif_bytes(indices, palette, **kw))
+
+
+@pytest.mark.parametrize("frames", ["png", "dib32", "dib24", "dib8", "dib4", "dib1",
+                                    "dib1_black_white", "png_and_dib", "same_size_depths"])
+@pytest.mark.parametrize("size", [16, 37, 64])
+def test_ico_grids_are_pils(frames, size):
+    """ICOs of PNG and DIB frames: PIL takes the largest frame, among equal
+    sizes the least bit count, and reads a DIB through its AND mask."""
+    rng = np.random.default_rng(size)
+    px = rng.integers(0, 256, (size, size, 3))
+
+    def dib(bits, palette=None):
+        if bits > 8:
+            return chip_smoke.dib_bytes(px, bits, alpha=rng.integers(0, 256, (size, size)),
+                                        mask=rng.integers(0, 2, (size, size)))
+        palette = rng.integers(0, 256, (1 << bits, 3)) if palette is None else palette
+        return chip_smoke.dib_bytes(rng.integers(0, len(palette), (size, size)), bits,
+                                    palette=palette, mask=rng.integers(0, 2, (size, size)))
+
+    png = chip_smoke.png_bytes(px.reshape(size, -1).astype(np.uint8), size, 2, 8,
+                               np.zeros(size, np.int64))
+    small = chip_smoke.dib_bytes(px[:8, :8], 24)
+    big = {"png": [(png, 32)], "dib32": [(dib(32), 32)], "dib24": [(dib(24), 24)],
+           "dib8": [(dib(8), 8)], "dib4": [(dib(4), 4)], "dib1": [(dib(1), 1)],
+           "dib1_black_white": [(dib(1, [[0, 0, 0], [255, 255, 255]]), 1)],
+           "png_and_dib": [(dib(24), 24), (png, 32)],
+           "same_size_depths": [(dib(32), 32), (dib(8), 8), (dib(24), 24)]}[frames]
+    assert_pils(chip_smoke.ico_bytes([(small, 8, 8, 24)] +
+                                     [(data, size, size, bits) for data, bits in big]))
+
+
+@pytest.mark.parametrize("fmt,mode,kw", [
+    ("PNG", "I;16", {}), ("GIF", "P", {}), ("GIF", "L", {}), ("GIF", "RGB", {}),
+    ("GIF", "P", {"interlace": False}), ("ICO", "RGBA", {}),
+    ("ICO", "RGBA", {"bitmap_format": "bmp"}), ("ICO", "RGB", {"bitmap_format": "bmp"})])
+@pytest.mark.parametrize("w,h", [(97, 33), (40, 40), (5, 3)])
+def test_pil_saved_16bit_gif_and_ico_are_pils(fmt, mode, kw, w, h):
+    rng = np.random.default_rng(w * h + len(kw))
+    if mode == "I;16":
+        im = Image.fromarray(rng.integers(0, 600, (h, w)).astype(np.uint16))
+    else:
+        base = Image.fromarray(rng.integers(0, 256, (h, w, 4), dtype=np.uint8), "RGBA")
+        im = base.convert("RGB").quantize(77) if mode == "P" else base.convert(mode)
+    if fmt == "ICO":
+        kw = dict(kw, sizes=[(16, 16), (w, h)])
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
     assert_pils(buf.getvalue())
 
 
@@ -166,14 +268,68 @@ def test_png_chunk_walk_refuses_what_pil_refuses(case):
         pil_grid(_png_walk(case))
 
 
+def _jpeg(**kw) -> bytes:
+    rng = np.random.default_rng(7)
+    return chip_smoke.jpeg_bytes(rng.integers(0, 256, (20, 28, 3), dtype=np.uint8), **kw)
+
+
+def _sof(data: bytes, marker: bytes = None, precision: int = None) -> bytes:
+    """`data` with its frame header's marker or sample precision replaced."""
+    at = data.index(b"\xff\xc0") if b"\xff\xc0" in data else data.index(b"\xff\xc2")
+    if marker is not None:
+        data = data[:at] + marker + data[at + 2:]
+    if precision is not None:
+        data = data[:at + 4] + bytes([precision]) + data[at + 5:]
+    return data
+
+
+def _dht_counts(data: bytes, counts: bytes) -> bytes:
+    """`data` with its first Huffman table's code counts by length replaced
+    (the same total: more codes of a length than it holds)."""
+    at = data.index(b"\xff\xc4") + 5
+    return data[:at] + counts + data[at + 16:]
+
+
+def _drop_last_scan(data: bytes) -> bytes:
+    """A progressive file without its last scan (the DC refinement)."""
+    return data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"
+
+
+def _extreme_block() -> bytes:
+    """A DC coefficient whose dequantised value (2047 x 9) passes the SIMD
+    IDCT's 16-bit range."""
+    block = np.zeros((1, 1, 64), np.int64)
+    block[0, 0, 0] = 2047
+    return chip_smoke.jpeg_from_coefficients([block], 8, 8, [(1, 1)], [np.full(64, 9)])
+
+
+def _gif(**kw) -> bytes:
+    rng = np.random.default_rng(8)
+    return chip_smoke.gif_bytes(rng.integers(0, 4, (9, 11)), rng.integers(0, 256, (4, 3)), **kw)
+
+
 UNSUPPORTED = {
-    "jpeg": lambda: _pil_bytes("RGB", "JPEG"),
-    "gif": lambda: _pil_bytes("P", "GIF"),
     "tiff": lambda: _pil_bytes("RGB", "TIFF"),
     "webp": lambda: _pil_bytes("RGB", "WEBP"),
-    "png_16bit": lambda: _pil_bytes("I;16", "PNG"),
-    "png_16bit_rgb": lambda: _png_with(2, 16),
-    "png_interlaced": lambda: _png_with(interlace=1),
+    "jpeg_no_eoi": lambda: _jpeg()[:-2],
+    "jpeg_truncated_scan": lambda: _jpeg()[:-60],
+    "jpeg_scan_cut_before_eoi": lambda: _jpeg()[:-60] + b"\xff\xd9",
+    "jpeg_arithmetic": lambda: _sof(_jpeg(), marker=b"\xff\xc9"),
+    "jpeg_lossless": lambda: _sof(_jpeg(), marker=b"\xff\xc3"),
+    "jpeg_12bit": lambda: _sof(_jpeg(), precision=12),
+    "jpeg_cmyk": lambda: _pil_bytes("CMYK", "JPEG"),
+    "jpeg_incomplete_progressive": lambda: _drop_last_scan(_jpeg(progressive=True)),
+    "jpeg_block_past_16_bits": _extreme_block,
+    "jpeg_oversubscribed_huffman_table": lambda: _dht_counts(
+        _jpeg(), bytes([3, 0, 4, 1, 1, 1, 1, 1] + [0] * 8)),
+    "gif_truncated": lambda: _gif()[:-12],
+    "gif_index_past_palette": lambda: chip_smoke.gif_bytes(np.full((3, 3), 5), np.zeros((4, 3))),
+    "gif_no_image": lambda: _gif()[:13 + 12] + b"\x3b",
+    "ico_grey_4bit_palette": lambda: chip_smoke.ico_bytes([(chip_smoke.dib_bytes(
+        np.zeros((8, 8), np.int64), 4, palette=np.repeat(np.arange(16)[:, None], 3, 1)),
+        8, 8, 4)]),
+    "ico_truncated": lambda: chip_smoke.ico_bytes([(chip_smoke.dib_bytes(
+        np.zeros((8, 8, 3), np.int64), 24), 8, 8, 24)])[:-40],
     "png_truncated": lambda: _png_with(cut=50),
     "png_bad_crc": lambda: _png_with(crc_flip=True),
     "png_bad_crc_text_before_idat": lambda: _png_walk("text_before_idat_bad_crc"),

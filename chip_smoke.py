@@ -54,26 +54,35 @@ with CUDA events. Phases:
    5's, K1 per page, 9 K2 windows and 9 folds for the 64 MiB file) and in
    ``verify`` mode (no mismatch);
 9. near-dup job — two image locations written by the harness's own PNG,
-   BMP, JPEG, GIF and ICO writers in the system temp dir: A, about 10 000
-   images of 48–800 px a side (ICO frames at most 256), every PNG colour
-   type, depth and row filter, Adam7 and 16-bit PNG, BMP at 8, 24 and 32
-   bits, JPEG at 4:2:0, 4:2:2, 4:4:4, gray, progressive (spectral
-   selection, DC successive approximation), with restart intervals and as
-   Adobe RGB, GIF plain and interlaced, ICO with a PNG or DIB frame; 300
-   planted near-dup groups (a JPEG re-encode in each), 100 byte-identical
-   copies, 20 files the decoder must refuse (a truncated PNG, a JPEG
-   without EOI, random bytes, a JPEG claiming arithmetic coding); and B,
-   about 2 000. Each is scanned with
+   BMP, JPEG, GIF, ICO, TIFF and WebP writers in the system temp dir: A,
+   about 10 000 images of 48–800 px a side (ICO and WebP singles at most
+   256), every PNG colour type, depth and row filter, Adam7 and 16-bit
+   PNG, BMP at 8, 24 and 32 bits, JPEG at 4:2:0, 4:2:2, 4:4:4, gray,
+   progressive (spectral selection, DC successive approximation), with
+   restart intervals and as Adobe RGB, GIF plain and interlaced, ICO with
+   a PNG or DIB frame, TIFF (LZW, Deflate, PackBits, uncompressed; II and
+   MM, strips and tiles, chunky and planar, predictor 2; gray at 1, 8 and
+   16 bits, RGB at 8 and 16, RGBA, palette at 4 and 8; BigTIFF), a
+   DNG-shaped TIFF, WebP lossless (predictor, subtract green, colour cache,
+   backward references), colour-indexed, lossy (1-8 partitions, segments,
+   both loop filters, 16x16 and B_PRED modes), with an ALPH chunk, and a
+   two-frame animation whose first frame is smaller than its canvas; 300
+   planted near-dup groups (a lossless TIFF, a JPEG and a lossy WebP
+   re-encode in each), 100 byte-identical copies, 20 files the decoder
+   must refuse (a truncated PNG, a JPEG without EOI, random bytes, a
+   truncated TIFF, a WebP whose VP8 data is cut, a JPEG claiming
+   arithmetic coding); and B, about 2 000. Each is scanned with
    ``scan_location(backend="cuda")``, then ``NearDupDetectorJob(backend=
    "cuda")`` decodes on the host (native C++ decoders), pHashes 256-image
    steps on the card and runs the exact pairs search: the pyramid
    (``hamming_near_counts`` launches) at A's ~9 900 digests, one
-   ``hamming_near_mask`` launch at B's ~1 950. Checked: the job's errors
-   are exactly the refused files; the native grids equal the plain
-   decoder's on a 1024-file sample holding every format; every stored
-   pHash the plain pHash of its grid (under the tie rule); the stored pairs
-   equal a numpy brute force, distances included; every planted pair is
-   found. Host decode time per image is printed per format;
+   ``hamming_near_mask`` launch at B's ~1 950. Checked: every kind is
+   written; the job's errors are exactly the refused files; the native
+   grids equal the plain decoder's on a 1024-file sample holding every
+   format; every stored pHash the plain pHash of its grid (under the tie
+   rule); the stored pairs equal a numpy brute force, distances included;
+   every planted pair is found. Host decode time per image is printed per
+   format, and for WebP per first chunk (VP8L, VP8, VP8X);
 10. near-dup at scale — ``near_dup_pairs(device="cuda")`` (each call a
    main path: the count form's sweep, refinement and leaves) at 100 000
    digests against ``hamming_near_mask`` tiled over the card, at 1 000 000
@@ -102,6 +111,7 @@ import contextlib
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -300,7 +310,7 @@ def phase_build():
 
     from spacedrive_tpu_torch.ops import _build
 
-    names = ("blake3_chunk", "hamming", "sdio_stage", "imgdec", "jpegdec")
+    names = ("blake3_chunk", "hamming", "sdio_stage", "imgdec", "jpegdec", "tiffdec", "webpdec")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(_build.compile_source, names))
@@ -1719,19 +1729,1246 @@ def jpeg_bytes(pixels: np.ndarray, quality: int = 75, sampling=(2, 2),
                                   adobe_rgb)
 
 
+# -- TIFF writer (harness code: the near-dup corpus and the tests) -------------
+
+TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 16: "Q"}  # BYTE, ASCII, SHORT, LONG, LONG8
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW of `data`: MSB-first codes of 9 to 12 bits that widen one
+    code early, a clear code first and whenever the table reaches 4094
+    entries, EOI last (libtiff's encoder)."""
+    codes, widths = [256], [9]
+    size, nxt, table = 9, 258, {}
+    flat = list(data)
+    if flat:
+        prefix = flat[0]
+        for c in flat[1:]:
+            code = table.get(prefix << 8 | c)
+            if code is not None:
+                prefix = code
+                continue
+            codes.append(prefix)
+            widths.append(size)
+            table[prefix << 8 | c] = nxt
+            nxt += 1
+            if nxt == 4094:
+                codes.append(256)
+                widths.append(size)
+                size, nxt, table = 9, 258, {}
+            elif nxt == 1 << size:
+                size += 1
+            prefix = c
+        codes.append(prefix)
+        widths.append(size)
+        nxt += 1
+        if nxt == 4094:
+            codes.append(256)
+            widths.append(size)
+            size = 9
+        elif nxt == 1 << size:
+            size += 1
+    codes.append(257)
+    widths.append(size)
+    return _pack_msb(np.array(codes, np.int64), np.array(widths, np.int64))
+
+
+def _pack_msb(codes: np.ndarray, widths: np.ndarray) -> bytes:
+    """Variable-width codes packed most significant bit first."""
+    ev = np.repeat(np.arange(len(codes)), widths)
+    j = np.repeat(np.cumsum(widths), widths) - 1 - np.arange(int(widths.sum()))
+    return np.packbits(((codes[ev] >> j) & 1).astype(np.uint8)).tobytes()
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as repeats, the rest as
+    literals, at most 128 bytes a block."""
+    a = np.frombuffer(data, np.uint8)
+    if not a.size:
+        return b""
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]])
+    lens = np.diff(np.r_[starts, a.size])
+    out, lit = bytearray(), []
+
+    def flush():
+        for i in range(0, len(lit), 128):
+            chunk = lit[i:i + 128]
+            out.append(len(chunk) - 1)
+            out.extend(chunk)
+        lit.clear()
+
+    for s, n in zip(starts.tolist(), lens.tolist()):
+        if n < 3:
+            lit.extend(a[s:s + n].tolist())
+            continue
+        flush()
+        while n >= 2:
+            k = min(n, 128)
+            out += bytes([257 - k, int(a[s])])
+            n -= k
+        if n:
+            lit.append(int(a[s]))
+    flush()
+    return bytes(out)
+
+
+def _tiff_rows(block: np.ndarray, bits: int, order: str) -> np.ndarray:
+    """[h, w, c] samples → [h, rowbytes] bytes, chunky, rows byte-aligned."""
+    h, w, c = block.shape
+    if bits == 8:
+        return block.astype(np.uint8).reshape(h, w * c)
+    if bits == 16:
+        return np.ascontiguousarray(block.astype(order + "u2")).view(np.uint8).reshape(h, -1)
+    return pack_bits(block.reshape(h, w * c).astype(np.int64), bits)
+
+
+def tiff_image(samples: np.ndarray, photometric: int, bits: int, *, order: str = "<",
+               compression: int = 1, predictor: int = 1, planar: int = 1,
+               rows_per_strip: int = None, tile=None, extra=(), colormap=None,
+               orientation: int = None, tags: dict = None) -> tuple:
+    """One TIFF image of [h, w] or [h, w, c] integer samples at `bits`
+    (1, 2, 4, 8 or 16): ({tag: (type, values)}, [strip or tile bytes]).
+    Strips of `rows_per_strip` (all rows by default) or `tile` (w, h)
+    tiles, padded at the edges; `planar` 2 stores each sample's plane
+    apart; `predictor` 2 differences each sample from the same sample of
+    the pixel before; `compression` 1, 5 (LZW), 8 or 32946 (Deflate) or
+    32773 (PackBits); the offsets are filled in by tiff_bytes."""
+    import zlib
+
+    if samples.ndim == 2:
+        samples = samples[:, :, None]
+    h, w, c = samples.shape
+    planes = [samples[:, :, k:k + 1] for k in range(c)] if planar == 2 else [samples]
+    if tile is not None:
+        tw, tl = tile
+        boxes = [(y, x) for y in range(0, h, tl) for x in range(0, w, tw)]
+    else:
+        rps = rows_per_strip or h
+        boxes = [(y, 0) for y in range(0, h, rps)]
+    chunks = []
+    for plane in planes:
+        for y, x in boxes:
+            if tile is not None:
+                block = np.zeros((tl, tw, plane.shape[2]), np.int64)
+                part = plane[y:y + tl, x:x + tw]
+                block[:part.shape[0], :part.shape[1]] = part
+            else:
+                block = plane[y:y + rps].astype(np.int64)
+            if predictor == 2:
+                diff = block.copy()
+                diff[:, 1:] -= block[:, :-1]
+                block = diff & ((1 << bits) - 1)
+            raw = _tiff_rows(block, bits, order).tobytes()
+            if compression == 5:
+                raw = tiff_lzw(raw)
+            elif compression in (8, 32946):
+                raw = zlib.compress(raw, 1)
+            elif compression == 32773:
+                raw = packbits(raw)
+            chunks.append(raw)
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * c), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [c]), 284: (3, [planar])}
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if tile is not None:
+        entries[322], entries[323] = (3, [tile[0]]), (3, [tile[1]])
+    else:
+        entries[278] = (4, [rows_per_strip or h])
+    if extra:
+        entries[338] = (3, list(extra))
+    if colormap is not None:
+        entries[320] = (3, np.asarray(colormap, np.int64).T.reshape(-1).tolist())
+    if orientation is not None:
+        entries[274] = (3, [orientation])
+    entries.update(tags or {})
+    entries["tiled"] = tile is not None
+    return entries, chunks
+
+
+def tiff_bytes(*images, order: str = "<", bigtiff: bool = False) -> bytes:
+    """A TIFF file of tiff_image() results: the first is IFD0, each later
+    one a child IFD that IFD0's SubIFDs tag (330) points to, as a DNG's raw
+    image is. The strip or tile data comes first, then the child IFDs,
+    then IFD0; the header's byte order is `order` ("<" II, ">" MM)."""
+    import struct
+
+    long_type = 16 if bigtiff else 4
+    pos = 16 if bigtiff else 8
+    body = bytearray()
+    laid = []
+    for entries, chunks in images:
+        offsets = []
+        for ch in chunks:
+            offsets.append(pos + len(body))
+            body += ch + b"\x00" * (len(ch) & 1)
+        entries = dict(entries)
+        off_tag, cnt_tag = (324, 325) if entries.pop("tiled") else (273, 279)
+        entries[off_tag] = (long_type, offsets)
+        entries[cnt_tag] = (long_type, [len(ch) for ch in chunks])
+        laid.append(entries)
+    blobs, at = [], pos + len(body)
+    for entries in laid[1:]:
+        blob = _tiff_ifd(entries, at, order, bigtiff)
+        blobs.append((at, blob))
+        at += len(blob)
+    if len(laid) > 1:
+        laid[0][330] = (4, [a for a, _ in blobs])
+    ifd0 = _tiff_ifd(laid[0], at, order, bigtiff)
+    head = (b"II" if order == "<" else b"MM") + (
+        struct.pack(order + "HHHQ", 43, 8, 0, at) if bigtiff else struct.pack(order + "HI", 42, at))
+    return head + bytes(body) + b"".join(b for _, b in blobs) + ifd0
+
+
+def _tiff_ifd(entries: dict, at: int, order: str, bigtiff: bool) -> bytes:
+    """One IFD at file offset `at`, its out-of-line values after it, no
+    next IFD."""
+    import struct
+
+    entry_size, count_fmt, inline = (20, "Q", 8) if bigtiff else (12, "I", 4)
+    head = struct.pack(order + ("Q" if bigtiff else "H"), len(entries))
+    extra_at = at + len(head) + len(entries) * entry_size + (8 if bigtiff else 4)
+    table, extra = b"", b""
+    for tag in sorted(entries):
+        kind, values = entries[tag]
+        if kind == 2:
+            payload = bytes(values)
+        else:
+            payload = struct.pack(order + TIFF_TYPES[kind] * len(values), *values)
+        if len(payload) <= inline:
+            field = payload.ljust(inline, b"\x00")
+        else:
+            field = struct.pack(order + ("Q" if bigtiff else "I"), extra_at + len(extra))
+            extra += payload + b"\x00" * (len(payload) & 1)
+        table += struct.pack(order + "HH" + count_fmt, tag, kind, len(values)) + field
+    return head + table + b"\x00" * (8 if bigtiff else 4) + extra
+
+
+def dng_bytes(preview: np.ndarray, raw: np.ndarray, order: str = "<",
+              compression: int = 1) -> bytes:
+    """A DNG-shaped file: IFD0 a reduced 8-bit RGB preview (NewSubfileType
+    1, DNGVersion 1.4, Make), its SubIFDs child the 16-bit CFA raw image
+    (photometric 32803, a 2 x 2 RGGB pattern). PIL reads IFD0 only."""
+    prev = tiff_image(preview, 2, 8, order=order, compression=compression,
+                      rows_per_strip=16, tags={254: (4, [1]), 50706: (1, [1, 4, 0, 0]),
+                                               271: (2, b"Harness\x00")})
+    child = tiff_image(raw, 32803, 16, order=order, rows_per_strip=64,
+                       tags={254: (4, [0]), 33421: (3, [2, 2]), 33422: (1, [0, 1, 1, 2])})
+    return tiff_bytes(prev, child, order=order)
+
+
+# -- WebP writers (harness code: the near-dup corpus and the tests) -----------
+
+
+class _LosslessBits:
+    """VP8L bit writer: (value, width) pairs packed least significant bit
+    first at the end."""
+
+    def __init__(self):
+        self.values, self.widths = [], []
+
+    def put(self, value: int, width: int) -> None:
+        if width:
+            self.values.append(int(value))
+            self.widths.append(int(width))
+
+    def extend(self, values: np.ndarray, widths: np.ndarray) -> None:
+        keep = widths > 0
+        self.values += values[keep].astype(np.int64).tolist()
+        self.widths += widths[keep].astype(np.int64).tolist()
+
+    def tobytes(self) -> bytes:
+        v = np.array(self.values, np.int64)
+        w = np.array(self.widths, np.int64)
+        if not len(v):
+            return b""
+        ev = np.repeat(np.arange(len(v)), w)
+        j = np.arange(int(w.sum())) - np.repeat(np.cumsum(w) - w, w)
+        return np.packbits(((v[ev] >> j) & 1).astype(np.uint8), bitorder="little").tobytes()
+
+
+def huffman_lengths(counts: np.ndarray, max_len: int = 15) -> np.ndarray:
+    """Code lengths of a complete prefix code over the symbols with a
+    nonzero count, none longer than `max_len` (the counts are flattened
+    until it holds); a lone symbol gets length 1."""
+    import heapq
+
+    counts = np.asarray(counts, np.int64)
+    used = np.flatnonzero(counts)
+    lengths = np.zeros(len(counts), np.int64)
+    if len(used) == 1:
+        lengths[used[0]] = 1
+        return lengths
+    weights = counts[used].astype(np.float64)
+    while True:
+        heap = [(w, i, (i,)) for i, w in enumerate(weights)]
+        heapq.heapify(heap)
+        depth = np.zeros(len(used), np.int64)
+        tie = len(used)
+        while len(heap) > 1:
+            w1, _, a = heapq.heappop(heap)
+            w2, _, b = heapq.heappop(heap)
+            for k in a + b:
+                depth[k] += 1
+            heapq.heappush(heap, (w1 + w2, tie, a + b))
+            tie += 1
+        if depth.max() <= max_len:
+            lengths[used] = depth
+            return lengths
+        weights = np.floor(weights / 2) + 1
+
+
+def canonical_codes(lengths: np.ndarray) -> np.ndarray:
+    """Each symbol's code, bit-reversed for a least-significant-first
+    stream (the canonical order: by length, then by symbol)."""
+    order = sorted((int(n), s) for s, n in enumerate(lengths) if n)
+    codes = np.zeros(len(lengths), np.int64)
+    code, prev = 0, order[0][0] if order else 0
+    for n, s in order:
+        code <<= n - prev
+        prev = n
+        codes[s] = int(f"{code:0{n}b}"[::-1], 2)
+        code += 1
+    return codes
+
+
+CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def _write_code(bw: _LosslessBits, counts: np.ndarray) -> np.ndarray:
+    """Write one prefix code for `counts` (a simple code where at most two
+    symbols below 256 are used, else a normal one with the code-length
+    code and its runs); returns the code lengths."""
+    used = np.flatnonzero(counts)
+    if len(used) == 0:
+        counts = counts.copy()
+        counts[0] = 1
+        used = np.array([0])
+    if len(used) <= 2 and used.max() < 256:
+        bw.put(1, 1)
+        bw.put(len(used) - 1, 1)
+        first = int(used[0])
+        bw.put(int(first >= 2), 1)
+        bw.put(first, 8 if first >= 2 else 1)
+        if len(used) == 2:
+            bw.put(int(used[1]), 8)
+        lengths = np.zeros(len(counts), np.int64)
+        lengths[used] = 1 if len(used) == 2 else 0
+        return lengths
+    lengths = huffman_lengths(counts)
+    # Run-length the lengths: 16 repeats the last nonzero length 3-6
+    # times, 17 and 18 runs of zeros of 3-10 and 11-138.
+    tokens = []
+    n, i, prev = len(lengths), 0, 8
+    while i < n:
+        v = int(lengths[i])
+        run = 1
+        while i + run < n and lengths[i + run] == v:
+            run += 1
+        if v == 0 and run >= 3:
+            k = min(run, 138)
+            tokens.append((18, k - 11, 7) if k >= 11 else (17, k - 3, 3))
+            i += k
+        elif v != 0 and v == prev and run >= 3:
+            k = min(run, 6)
+            tokens.append((16, k - 3, 2))
+            i += k
+        else:
+            tokens.append((v, 0, 0))
+            if v:
+                prev = v
+            i += 1
+    cl_counts = np.bincount([t[0] for t in tokens], minlength=19)
+    cl_lengths = huffman_lengths(cl_counts, 7)
+    cl_codes = canonical_codes(cl_lengths)
+    num = max(4, max(k + 1 for k, s in enumerate(CODE_LENGTH_ORDER) if cl_lengths[s]))
+    bw.put(0, 1)
+    bw.put(num - 4, 4)
+    for k in range(num):
+        bw.put(int(cl_lengths[CODE_LENGTH_ORDER[k]]), 3)
+    bw.put(0, 1)  # no max_symbol: the runs cover every symbol
+    single = int((cl_lengths > 0).sum()) == 1
+    for sym, extra, width in tokens:
+        if not single:
+            bw.put(int(cl_codes[sym]), int(cl_lengths[sym]))
+        bw.put(extra, width)
+    if int((lengths > 0).sum()) == 1:
+        lengths = np.where(lengths > 0, 0, lengths)
+    return lengths
+
+
+def _prefix(values: np.ndarray):
+    """VP8L prefix coding of values >= 1: (symbol, extra bit count, extra
+    bits)."""
+    d = np.asarray(values, np.int64) - 1
+    small = d < 4
+    hb = np.where(small, 0, np.floor(np.log2(np.maximum(d, 1))).astype(np.int64))
+    shb = np.where(small, 0, (d >> np.maximum(hb - 1, 0)) & 1)
+    sym = np.where(small, d, 2 * hb + shb)
+    nextra = np.where(small, 0, hb - 1)
+    extra = np.where(small, 0, d & ((1 << nextra) - 1))
+    return sym, nextra, extra
+
+
+# (dx, dy) of the neighbours the writer copies from → its short distance code.
+PLANE_CODES = {(0, 1): 1, (1, 0): 2, (1, 1): 3, (-1, 1): 4}
+
+
+def _tokens(px: np.ndarray, width: int, cache_bits: int, backrefs: bool):
+    """Greedy LZ77 over [n] uint32 ARGB: a backward reference where one of
+    the four neighbours (left, up, up-left, up-right) repeats for 3 or
+    more pixels, else a colour cache hit, else a literal. Returns
+    (kind 0/1/2, a, b) arrays: literal (a = pixel), reference (a =
+    length, b = distance code), cache (a = key)."""
+    n = len(px)
+    cands = []
+    if backrefs:
+        for (dx, dy), code in PLANE_CODES.items():
+            d = dx + dy * width
+            if 1 <= d < n:
+                eq = np.zeros(n + 1, np.int64)
+                eq[d:n] = px[d:] == px[:-d]
+                # run[i] = equal positions from i on
+                idx = np.flatnonzero(eq[:n] == 0)
+                nxt = np.full(n + 1, n)
+                nxt[idx] = idx
+                nxt = np.minimum.accumulate(nxt[::-1])[::-1]
+                cands.append((d, code, nxt[:n] - np.arange(n)))
+    cache = {} if cache_bits else None
+    shift = 32 - cache_bits
+    kinds, a_vals, b_vals = [], [], []
+    pxl = px.tolist()
+    i, inserted = 0, 0
+    runs = [(d, code, r.tolist()) for d, code, r in cands]
+    while i < n:
+        best, best_code = 0, 0
+        for d, code, r in runs:
+            if i >= d and r[i] > best:
+                best, best_code = r[i], code
+        if best >= 3:
+            length = min(best, 4096)
+            kinds.append(1)
+            a_vals.append(length)
+            b_vals.append(best_code)
+            i += length
+            continue
+        v = pxl[i]
+        if cache is not None:
+            while inserted < i:
+                u = pxl[inserted]
+                cache[((u * 0x1E35A7BD) & 0xFFFFFFFF) >> shift] = u
+                inserted += 1
+            key = ((v * 0x1E35A7BD) & 0xFFFFFFFF) >> shift
+            if cache.get(key) == v:
+                kinds.append(2)
+                a_vals.append(key)
+                b_vals.append(0)
+                i += 1
+                continue
+        kinds.append(0)
+        a_vals.append(v)
+        b_vals.append(0)
+        i += 1
+    return np.array(kinds, np.int64), np.array(a_vals, np.int64), np.array(b_vals, np.int64)
+
+
+def _image_data(bw: _LosslessBits, px: np.ndarray, width: int, cache_bits: int,
+                backrefs: bool, level0: bool) -> None:
+    """The entropy-coded image: colour cache bit, (level 0: no meta codes),
+    the five codes, then the tokens."""
+    if cache_bits:
+        bw.put(1, 1)
+        bw.put(cache_bits, 4)
+    else:
+        bw.put(0, 1)
+    if level0:
+        bw.put(0, 1)  # one Huffman group
+    kinds, a, b = _tokens(px.reshape(-1).astype(np.int64), width, cache_bits, backrefs)
+    lit, ref, hit = kinds == 0, kinds == 1, kinds == 2
+    green = np.where(lit, (a >> 8) & 0xFF, 0)
+    len_sym, len_nx, len_x = _prefix(np.where(ref, a, 1))
+    green = np.where(ref, 256 + len_sym, green)
+    green = np.where(hit, 280 + a, green)
+    dist_sym, dist_nx, dist_x = _prefix(np.where(ref, b, 1))
+    alphabet = 280 + ((1 << cache_bits) if cache_bits else 0)
+    chans = [(green, np.ones(len(kinds), bool), alphabet), ((a >> 16) & 0xFF, lit, 256),
+             (a & 0xFF, lit, 256), ((a >> 24) & 0xFF, lit, 256), (dist_sym, ref, 40)]
+    codes = []
+    for sym, mask, size in chans:
+        lengths = _write_code(bw, np.bincount(sym[mask], minlength=size))
+        codes.append((lengths, canonical_codes(lengths)))
+    # Interleave each token's fields in the order the decoder reads them.
+    fields = []
+    (gl, gc), (rl, rc), (bl, bc), (al, ac), (dl, dc) = codes
+    fields.append((gc[green], gl[green]))
+    fields.append((np.where(lit, rc[(a >> 16) & 0xFF], len_x), np.where(lit, rl[(a >> 16) & 0xFF],
+                                                                        np.where(ref, len_nx, 0))))
+    fields.append((np.where(lit, bc[a & 0xFF], dc[dist_sym]),
+                   np.where(lit, bl[a & 0xFF], np.where(ref, dl[dist_sym], 0))))
+    fields.append((np.where(lit, ac[(a >> 24) & 0xFF], dist_x),
+                   np.where(lit, al[(a >> 24) & 0xFF], np.where(ref, dist_nx, 0))))
+    vals = np.stack([f[0] for f in fields], axis=1).reshape(-1)
+    wids = np.stack([f[1] for f in fields], axis=1).reshape(-1)
+    bw.extend(vals, wids)
+
+
+def _channels(px: np.ndarray) -> np.ndarray:
+    """[..] uint32 ARGB → [.., 4] int64 (A, R, G, B)."""
+    return np.stack([(px >> s) & 0xFF for s in (24, 16, 8, 0)], axis=-1).astype(np.int64)
+
+
+def _pack(ch: np.ndarray) -> np.ndarray:
+    ch = ch & 0xFF
+    return ((ch[..., 0] << 24) | (ch[..., 1] << 16) | (ch[..., 2] << 8) | ch[..., 3]).astype(
+        np.uint32)
+
+
+def _predictions(argb: np.ndarray) -> np.ndarray:
+    """[14, h, w, 4] each predictor mode's prediction of every pixel from
+    its original neighbours (the edge rules applied by the caller)."""
+    h, w = argb.shape
+    c = _channels(argb)
+    flat = c.reshape(-1, 4)
+    n = h * w
+    idx = np.arange(n)
+    L = flat[np.maximum(idx - 1, 0)]
+    T = flat[np.maximum(idx - w, 0)]
+    TR = flat[np.clip(idx - w + 1, 0, n - 1)]
+    TL = flat[np.maximum(idx - w - 1, 0)]
+
+    def avg(a, b):
+        return (a + b) >> 1
+
+    black = np.zeros_like(L)
+    black[:, 0] = 255
+    sel_l = (np.abs(L - TL) - np.abs(T - TL)).sum(axis=1, keepdims=True) > 0
+    half = avg(L, T)
+    diff = half - TL
+    modes = [black, L, T, TR, TL, avg(avg(L, TR), T), avg(L, TL), avg(L, T), avg(TL, T),
+             avg(T, TR), avg(avg(L, TL), avg(T, TR)), np.where(sel_l, L, T),
+             np.clip(L + T - TL, 0, 255), np.clip(half + np.trunc(diff / 2).astype(np.int64), 0,
+                                                  255)]
+    return np.stack(modes).reshape(14, h, w, 4)
+
+
+def webp_lossless_stream(argb: np.ndarray, *, predictor_bits: int = None,
+                         subtract_green: bool = False, cache_bits: int = 0,
+                         backrefs: bool = True, palette: bool = False, header: bool = True,
+                         alpha_used: bool = False) -> bytes:
+    """A VP8L bitstream of [h, w] uint32 ARGB: the header (where
+    `header`), then the transforms asked for (subtract-green, the
+    predictor with the least-residual mode of each block of 2**bits, or a
+    colour-indexing palette of at most 16 colours with pixels bundled),
+    then the entropy-coded image with backward references and a colour
+    cache of `cache_bits`."""
+    h, w = argb.shape
+    bw = _LosslessBits()
+    if header:
+        bw.put(0x2F, 8)
+        bw.put(w - 1, 14)
+        bw.put(h - 1, 14)
+        bw.put(int(alpha_used), 1)
+        bw.put(0, 3)
+    data, width = argb.astype(np.uint32), w
+    if palette:
+        colours, index = np.unique(data.reshape(-1), return_inverse=True)
+        num = len(colours)
+        if num > 16:
+            raise ValueError(f"{num} colours: the palette variant takes at most 16")
+        bits = 1 if num > 4 else 2 if num > 2 else 3
+        per, bpp = 1 << bits, 8 >> bits
+        index = index.reshape(h, w)
+        width = -(-w // per)
+        wide = np.zeros((h, width * per), np.int64)
+        wide[:, :w] = index
+        packed = (wide.reshape(h, width, per) << (np.arange(per) * bpp)).sum(axis=2)
+        bw.put(1, 1)
+        bw.put(3, 2)
+        bw.put(num - 1, 8)
+        pal = _channels(colours)
+        delta = pal.copy()
+        delta[1:] -= pal[:-1]
+        _image_data(bw, _pack(delta)[None, :], num, 0, False, False)
+        data = (0xFF000000 | (packed << 8)).astype(np.uint32)
+    if subtract_green:
+        c = _channels(data)
+        c[..., 1] -= c[..., 2]
+        c[..., 3] -= c[..., 2]
+        data = _pack(c)
+        bw.put(1, 1)
+        bw.put(2, 2)
+    if predictor_bits is not None:
+        hh, ww = data.shape
+        preds = _predictions(data)
+        c = _channels(data)
+        resid = (c[None] - preds) & 0xFF
+        score = np.minimum(resid, 256 - resid).sum(axis=-1)
+        bh, bwid = -(-hh // (1 << predictor_bits)), -(-ww // (1 << predictor_bits))
+        ys = np.arange(hh) >> predictor_bits
+        xs = np.arange(ww) >> predictor_bits
+        block = (ys[:, None] * bwid + xs[None, :]).reshape(-1)
+        sums = np.stack([np.bincount(block, score[m].reshape(-1), bh * bwid) for m in range(14)])
+        modes = sums.argmin(axis=0)
+        mode_px = modes[block].reshape(hh, ww)
+        pred = np.take_along_axis(preds, mode_px[None, :, :, None], axis=0)[0]
+        # The edges: black at the first pixel, left along the first row,
+        # top down the first column.
+        cc = c.reshape(hh, ww, 4)
+        pred[0, 0] = (255, 0, 0, 0)
+        pred[0, 1:] = cc[0, :-1]
+        pred[1:, 0] = cc[:-1, 0]
+        data = _pack(c - pred)
+        bw.put(1, 1)
+        bw.put(0, 2)
+        bw.put(predictor_bits - 2, 3)
+        mode_img = (0xFF000000 | (modes.reshape(bh, bwid) << 8)).astype(np.uint32)
+        _image_data(bw, mode_img, bwid, 0, True, False)
+    bw.put(0, 1)  # no more transforms
+    _image_data(bw, data, data.shape[1], cache_bits, backrefs, True)
+    return bw.tobytes()
+
+
+def riff_chunk(kind: bytes, payload: bytes) -> bytes:
+    return kind + struct.pack("<I", len(payload)) + payload + b"\x00" * (len(payload) & 1)
+
+
+def riff_webp(chunks: bytes) -> bytes:
+    return b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WEBP" + chunks
+
+
+def rgb_to_argb(rgb: np.ndarray, alpha: np.ndarray = None) -> np.ndarray:
+    a = np.full(rgb.shape[:2], 255, np.uint32) if alpha is None else alpha.astype(np.uint32)
+    r, g, b = (rgb[..., k].astype(np.uint32) for k in range(3))
+    return (a << 24) | (r << 16) | (g << 8) | b
+
+
+def webp_lossless_bytes(rgb: np.ndarray, alpha: np.ndarray = None, **kw) -> bytes:
+    """A lossless WebP (one VP8L chunk) of [h, w, 3] uint8 RGB and an
+    optional [h, w] alpha; `kw` as webp_lossless_stream."""
+    stream = webp_lossless_stream(rgb_to_argb(rgb, alpha), alpha_used=alpha is not None, **kw)
+    return riff_webp(riff_chunk(b"VP8L", stream))
+
+
+class _BoolWriter:
+    """The VP8 boolean encoder (RFC 6386 section 7.3)."""
+
+    def __init__(self):
+        self.out = bytearray()
+        self.range, self.bottom, self.count = 255, 0, 24
+
+    def put(self, bit: int, prob: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                self._carry()
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.count -= 1
+            if not self.count:
+                self.out.append((self.bottom >> 24) & 0xFF)
+                self.bottom &= (1 << 24) - 1
+                self.count = 8
+
+    def _carry(self) -> None:
+        i = len(self.out) - 1
+        while i >= 0 and self.out[i] == 255:
+            self.out[i] = 0
+            i -= 1
+        self.out[i] += 1
+
+    def bits(self, value: int, n: int) -> None:
+        for k in range(n - 1, -1, -1):
+            self.put((value >> k) & 1, 0x80)
+
+    def signed(self, value: int, n: int) -> None:
+        self.bits(abs(value), n)
+        self.put(int(value < 0), 0x80)
+
+    def flag_signed(self, value: int, n: int) -> None:
+        self.put(int(value != 0), 0x80)
+        if value:
+            self.signed(value, n)
+
+    def finish(self) -> bytes:
+        c, v = self.count, self.bottom
+        if v & (1 << (32 - c)):
+            self._carry()
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append((v >> 24) & 0xFF)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+ZIGZAG_ORDER = np.array([0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15])
+
+
+def _tree_paths(tree) -> dict:
+    """leaf → [(node, bit)] of a VP8 tree in libwebp's kYModesIntra4 form."""
+    paths = {}
+
+    def walk(i, path):
+        for bit in (0, 1):
+            nxt = tree[i + bit]
+            step = path + [(i, bit)]
+            if nxt > 0:
+                walk(2 * nxt, step)
+            else:
+                paths[-nxt] = step
+
+    walk(0, [])
+    return paths
+
+
+def _linear(fn, n: int = 16) -> np.ndarray:
+    """The matrix of a transform from its integer version run without
+    rounding (a float stand-in): column k = fn(unit vector k)."""
+    return np.stack([fn(np.eye(n)[k]) for k in range(n)], axis=1)
+
+
+def _idct_float(c):
+    c = np.asarray(c, np.float64).reshape(4, 4)
+    m1 = lambda a: a * 20091 / 65536 + a
+    m2 = lambda a: a * 35468 / 65536
+    a, b = c[0] + c[2], c[0] - c[2]
+    cc, d = m2(c[1]) - m1(c[3]), m1(c[1]) + m2(c[3])
+    t = np.stack([a + d, b + cc, b - cc, a - d])  # t[k][col]
+    out = np.zeros((4, 4))
+    for i in range(4):
+        a, b = t[i, 0] + t[i, 2], t[i, 0] - t[i, 2]
+        cc, d = m2(t[i, 1]) - m1(t[i, 3]), m1(t[i, 1]) + m2(t[i, 3])
+        out[i] = np.array([a + d, b + cc, b - cc, a - d]) / 8
+    return out.reshape(-1)
+
+
+def _wht_float(dc):
+    dc = np.asarray(dc, np.float64)
+    tmp = np.zeros(16)
+    for i in range(4):
+        a0, a1 = dc[i] + dc[12 + i], dc[4 + i] + dc[8 + i]
+        a2, a3 = dc[4 + i] - dc[8 + i], dc[i] - dc[12 + i]
+        tmp[i], tmp[8 + i], tmp[4 + i], tmp[12 + i] = a0 + a1, a0 - a1, a3 + a2, a3 - a2
+    out = np.zeros(16)
+    for i in range(4):
+        d = tmp[4 * i]
+        a0, a1 = d + tmp[3 + 4 * i], tmp[1 + 4 * i] + tmp[2 + 4 * i]
+        a2, a3 = tmp[1 + 4 * i] - tmp[2 + 4 * i], d - tmp[3 + 4 * i]
+        out[4 * i:4 * i + 4] = np.array([a0 + a1, a3 + a2, a0 - a1, a3 - a2]) / 8
+    return out
+
+
+_FDCT = np.linalg.inv(_linear(_idct_float))
+_FWHT = np.linalg.inv(_linear(_wht_float))
+
+
+def _rgb_to_yuv420(rgb: np.ndarray, mb_h: int, mb_w: int):
+    """BT.601 studio-range YUV, chroma averaged over 2x2, edges replicated
+    out to whole macroblocks."""
+    h, w, _ = rgb.shape
+    pad = np.pad(rgb.astype(np.float64), ((0, 16 * mb_h - h), (0, 16 * mb_w - w), (0, 0)),
+                 mode="edge")
+    r, g, b = pad[..., 0], pad[..., 1], pad[..., 2]
+    y = 16 + (65.738 * r + 129.057 * g + 25.064 * b) / 256
+    u = 128 + (-37.945 * r - 74.494 * g + 112.439 * b) / 256
+    v = 128 + (112.439 * r - 94.154 * g - 18.285 * b) / 256
+
+    def down(p):
+        return p.reshape(8 * mb_h, 2, 8 * mb_w, 2).mean(axis=(1, 3))
+
+    return (np.clip(np.rint(y), 0, 255), np.clip(np.rint(down(u)), 0, 255),
+            np.clip(np.rint(down(v)), 0, 255))
+
+
+def _quantise(c: np.ndarray, q: int, bias: float) -> np.ndarray:
+    level = np.floor(np.abs(c) / q + bias).astype(np.int64)
+    return np.sign(c).astype(np.int64) * np.minimum(level, 2048)
+
+
+class _Vp8Encoder:
+    """A VP8 key-frame encoder that keeps its own reconstruction (the
+    decoder's prediction, WHT and IDCT, from media/webp.py) so the file
+    stays close to the picture."""
+
+    def __init__(self, rgb: np.ndarray, rng, *, q_index: int, partitions: int,
+                 segments: bool, filter_kind: str, level: int, sharpness: int,
+                 b_pred_share: float, skip_proba: bool, prob_updates: int):
+        from spacedrive_tpu_torch.media import webp as W
+
+        self.W = W
+        self.rng = rng
+        h, w, _ = rgb.shape
+        self.h, self.w = h, w
+        self.mb_w, self.mb_h = (w + 15) >> 4, (h + 15) >> 4
+        self.src_y, self.src_u, self.src_v = _rgb_to_yuv420(rgb, self.mb_h, self.mb_w)
+        self.Y = np.zeros((16 * self.mb_h, 16 * self.mb_w), np.uint8)
+        self.U = np.zeros((8 * self.mb_h, 8 * self.mb_w), np.uint8)
+        self.V = np.zeros((8 * self.mb_h, 8 * self.mb_w), np.uint8)
+        self.num_parts = partitions
+        self.segments = segments
+        self.b_pred_share = b_pred_share
+        self.skip_proba = skip_proba
+        # Segment quantisers (absolute) around q_index, and filter levels.
+        self.seg_q = [int(np.clip(q_index + d, 0, 127)) for d in (0, -8, 8, 16)] if segments \
+            else [q_index] * 4
+        self.seg_filter = [int(np.clip(level + d, 0, 63)) for d in (0, 4, -4, 8)]
+        self.filter_kind, self.level, self.sharpness = filter_kind, level, sharpness
+        self.probs = list(W.T.COEFFS_PROBA0)
+        self.updates = {}
+        for i in rng.choice(len(self.probs), prob_updates, replace=False).tolist():
+            self.updates[i] = int(rng.integers(1, 256))
+            self.probs[i] = self.updates[i]
+        flat = self.probs
+        bands = [[[flat[((t * 8 + b) * 3 + c) * 11:((t * 8 + b) * 3 + c) * 11 + 11]
+                   for c in range(3)] for b in range(8)] for t in range(4)]
+        self.bands = [[bands[t][W.BANDS[n]] for n in range(17)] for t in range(4)]
+        self.bmode_paths = _tree_paths(W.YMODES_INTRA4)
+
+    def dq_table(self) -> np.ndarray:
+        """[segment, (y1, y2, uv), (dc, ac)] dequantisation factors, as the
+        decoder derives them from the segment quantisers."""
+        W = self.W
+        table = np.zeros((4, 3, 2), np.int64)
+        for seg, q in enumerate(self.seg_q):
+            table[seg] = ((W.T.DC_TABLE[q], W.T.AC_TABLE[q]),
+                          (W.T.DC_TABLE[q] * 2, max(8, (W.T.AC_TABLE[q] * 101581) >> 16)),
+                          (W.T.DC_TABLE[min(q, 117)], W.T.AC_TABLE[q]))
+        return table
+
+    @staticmethod
+    def _levels(coef: np.ndarray, q: np.ndarray, first: int) -> np.ndarray:
+        """[m, nb, 16] transform coefficients (raster) → quantised levels
+        by each macroblock's (dc, ac) factors `q` [m, 2]; the DC left at 0
+        where `first`."""
+        lv = np.concatenate([_quantise(coef[..., :1], q[:, None, None, 0], 0.5),
+                             _quantise(coef[..., 1:], q[:, None, None, 1], 0.35)], axis=-1)
+        if first:
+            lv[..., 0] = 0
+        return lv
+
+    @staticmethod
+    def _dequantise(lv: np.ndarray, q: np.ndarray) -> np.ndarray:
+        """Levels → the 16-bit coefficients the decoder holds."""
+        deq = lv * np.where(np.arange(16) == 0, q[:, None, None, 0], q[:, None, None, 1])
+        return ((deq + 0x8000) & 0xFFFF) - 0x8000
+
+    @staticmethod
+    def _gather(plane: np.ndarray, my: np.ndarray, mx: np.ndarray, size: int) -> np.ndarray:
+        k = np.arange(size)
+        return plane[(my * size)[:, None, None] + k[None, :, None],
+                     (mx * size)[:, None, None] + k[None, None, :]].astype(np.int64)
+
+    @staticmethod
+    def _to_blocks(mb: np.ndarray, per_row: int) -> np.ndarray:
+        """[m, 4·per_row, 4·per_row] → [m, per_row², 16] 4x4 blocks (raster)."""
+        m = mb.shape[0]
+        return mb.reshape(m, per_row, 4, per_row, 4).transpose(0, 1, 3, 2, 4).reshape(
+            m, per_row * per_row, 16)
+
+    def reconstruct(self) -> None:
+        """Choose, quantise and reconstruct every macroblock, a wavefront
+        at a time (W._diagonals): 16x16 luma and chroma modes by least
+        error over four, B_PRED sub-blocks by least error over three."""
+        W, rng = self.W, self.rng
+        mb_w, mb_h = self.mb_w, self.mb_h
+        self.is_i4 = rng.random((mb_h, mb_w)) < self.b_pred_share
+        self.segment = rng.integers(0, 4, (mb_h, mb_w)) if self.segments \
+            else np.zeros((mb_h, mb_w), np.int64)
+        self.ymode = np.zeros((mb_h, mb_w), np.int64)
+        self.bmodes = np.zeros((mb_h, mb_w, 16), np.int64)
+        self.uvmode = np.zeros((mb_h, mb_w), np.int64)
+        self.y2_lv = np.zeros((mb_h, mb_w, 16), np.int64)
+        self.y_lv = np.zeros((mb_h, mb_w, 16, 16), np.int64)
+        self.uv_lv = np.zeros((mb_h, mb_w, 8, 16), np.int64)
+        dq = self.dq_table()
+        modes4 = np.array([W.DC_PRED, W.TM_PRED, W.V_PRED, W.H_PRED])  # predict_all's order
+        for my, mx in W._diagonals(mb_w, mb_h):
+            q = dq[self.segment[my, mx]]
+            sel = ~self.is_i4[my, mx]
+            if sel.any():
+                sy, sx, qs = my[sel], mx[sel], q[sel]
+                k = len(sy)
+                src = self._gather(self.src_y, sy, sx, 16)
+                top, left, tl = W.neighbours(self.Y, sy, sx, 16)
+                preds = W.predict_all(top, left, tl, sy, sx, 16)
+                pick = np.abs(src[None] - preds).sum(axis=(2, 3)).argmin(axis=0)
+                pred = preds[pick, np.arange(k)]
+                coef = self._to_blocks(src - pred, 4) @ _FDCT.T
+                y2 = coef[..., 0] @ _FWHT.T
+                y2_lv = np.concatenate([_quantise(y2[:, :1], qs[:, 1, :1], 0.5),
+                                        _quantise(y2[:, 1:], qs[:, 1, 1:], 0.5)], axis=1)
+                dcs = W.wht_batch(self._dequantise(y2_lv[:, None], qs[:, 1])[:, 0])
+                ac_lv = self._levels(coef, qs[:, 0], 1)
+                coeffs = self._dequantise(ac_lv, qs[:, 0])
+                coeffs[..., 0] = dcs
+                res = W._idct(coeffs.reshape(-1, 16)).reshape(k, 16, 4, 4)
+                W.put_blocks(self.Y, sy, sx,
+                             np.clip(pred + W.blocks_to_plane(res, 4), 0, 255))
+                self.ymode[sy, sx] = modes4[pick]
+                self.y2_lv[sy, sx] = y2_lv
+                self.y_lv[sy, sx] = ac_lv
+            for y, x, qm in zip(my[~sel].tolist(), mx[~sel].tolist(), q[~sel]):
+                self._i4(y, x, qm[0])
+            src_u = self._gather(self.src_u, my, mx, 8)
+            src_v = self._gather(self.src_v, my, mx, 8)
+            nb_u = W.neighbours(self.U, my, mx, 8)
+            nb_v = W.neighbours(self.V, my, mx, 8)
+            m = len(my)
+            preds_u = W.predict_all(*nb_u, my, mx, 8)
+            preds_v = W.predict_all(*nb_v, my, mx, 8)
+            err = np.abs(src_u[None] - preds_u).sum(axis=(2, 3)) + \
+                np.abs(src_v[None] - preds_v).sum(axis=(2, 3))
+            pick = err.argmin(axis=0)
+            self.uvmode[my, mx] = modes4[pick]
+            for plane, src, preds, at in ((self.U, src_u, preds_u, 0), (self.V, src_v, preds_v, 4)):
+                pred = preds[pick, np.arange(m)]
+                lv = self._levels(self._to_blocks(src - pred, 2) @ _FDCT.T, q[:, 2], 0)
+                res = W._idct(self._dequantise(lv, q[:, 2]).reshape(-1, 16)).reshape(m, 4, 4, 4)
+                W.put_blocks(plane, my, mx, np.clip(pred + W.blocks_to_plane(res, 2), 0, 255))
+                self.uv_lv[my, mx, at:at + 4] = lv
+
+    def _i4(self, mb_y: int, mb_x: int, q: np.ndarray) -> None:
+        """One B_PRED macroblock, block by block in the decoder's work area."""
+        W, rng = self.W, self.rng
+        y0, x0 = 16 * mb_y, 16 * mb_x
+        src = self.src_y[y0:y0 + 16, x0:x0 + 16].astype(np.int64)
+        top, left, tl = W.neighbours(self.Y, np.array([mb_y]), np.array([mb_x]), 16)
+
+        def block(n, above, left4, corner):
+            s = src[4 * (n >> 2):4 * (n >> 2) + 4, 4 * (n & 3):4 * (n & 3) + 4].reshape(-1)
+            best = None
+            for mode in (W.B_DC, W.B_TM, int(rng.integers(2, 10))):
+                pred = np.array(W._predict4(mode, above, left4, corner))
+                err = int(np.abs(s - pred).sum())
+                if best is None or err < best[0]:
+                    best = (err, mode, pred)
+            _, mode, pred = best
+            lv = self._levels(((s - pred) @ _FDCT.T)[None, None], q[None], 0)
+            res = W._idct(self._dequantise(lv, q[None]).reshape(1, 16)).reshape(16)
+            self.bmodes[mb_y, mb_x, n] = mode
+            self.y_lv[mb_y, mb_x, n] = lv[0, 0]
+            return np.clip(pred + res, 0, 255).tolist()
+
+        W.i4_reconstruct(self.Y, mb_x, mb_y, self.mb_w, top[0].tolist(), left[0].tolist(),
+                         int(tl[0]), block)
+
+    # -- tokens ------------------------------------------------------------------
+
+    def _block_tokens(self, bw: _BoolWriter, prob, ctx: int, lv_raster, first: int) -> int:
+        """GetCoeffs' inverse for one block; returns the index past the
+        last token written (the decoder's nz)."""
+        n = first
+        p = prob[n][ctx]
+        zz = lv_raster[ZIGZAG_ORDER].tolist()
+        nonzero = [k for k in range(first, 16) if zz[k]]
+        if not nonzero:
+            bw.put(0, p[0])
+            return n
+        last = nonzero[-1]
+        while n < 16:
+            if n > last:
+                bw.put(0, p[0])
+                return n
+            bw.put(1, p[0])
+            while zz[n] == 0:
+                bw.put(0, p[1])
+                n += 1
+                p = prob[n][0]
+            bw.put(1, p[1])
+            v = abs(zz[n])
+            nxt = prob[n + 1]
+            if v == 1:
+                bw.put(0, p[2])
+                p = nxt[1]
+            else:
+                bw.put(1, p[2])
+                self._large(bw, p, v)
+                p = nxt[2]
+            bw.put(int(zz[n] < 0), 0x80)
+            n += 1
+        return 16
+
+    @staticmethod
+    def _large(bw: _BoolWriter, p, v: int) -> None:
+        if v <= 4:
+            bw.put(0, p[3])
+            if v == 2:
+                bw.put(0, p[4])
+            else:
+                bw.put(1, p[4])
+                bw.put(v - 3, p[5])
+            return
+        bw.put(1, p[3])
+        if v <= 10:
+            bw.put(0, p[6])
+            if v <= 6:
+                bw.put(0, p[7])
+                bw.put(v - 5, 159)
+            else:
+                bw.put(1, p[7])
+                bw.put((v - 7) >> 1, 165)
+                bw.put((v - 7) & 1, 145)
+            return
+        bw.put(1, p[6])
+        cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+        bw.put(cat >> 1, p[8])
+        bw.put(cat & 1, p[9 + (cat >> 1)])
+        extra = v - (3 + (8 << cat))
+        probs = ((173, 148, 140), (176, 155, 140, 135), (180, 157, 141, 134, 130),
+                 (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))[cat]
+        for k, prob in enumerate(probs):
+            bw.put((extra >> (len(probs) - 1 - k)) & 1, prob)
+
+    def residual_tokens(self, bw: _BoolWriter, mb: dict, top: list, left: list) -> None:
+        """ParseResiduals' inverse, the contexts updated as the decoder does."""
+        if not mb["i4x4"]:
+            nz = self._block_tokens(bw, self.bands[1], top[1] + left[1], mb["y2"], 0)
+            top[1] = left[1] = int(nz > 0)
+            first, ac = 1, self.bands[0]
+        else:
+            first, ac = 0, self.bands[3]
+        tnz, lnz = top[0] & 0x0F, left[0] & 0x0F
+        for y in range(4):
+            l = lnz & 1
+            for x in range(4):
+                nz = self._block_tokens(bw, ac, l + (tnz & 1), mb["y"][4 * y + x], first)
+                l = int(nz > first)
+                tnz = (tnz >> 1) | (l << 7)
+            tnz >>= 4
+            lnz = (lnz >> 1) | (l << 7)
+        out_t, out_l = tnz, lnz >> 4
+        for ch in (0, 2):
+            tnz = (top[0] >> (4 + ch)) & 0xFF
+            lnz = (left[0] >> (4 + ch)) & 0xFF
+            for y in range(2):
+                l = lnz & 1
+                for x in range(2):
+                    blk = mb["uv_levels"][2 * ch + 2 * y + x]
+                    nz = self._block_tokens(bw, self.bands[2], l + (tnz & 1), blk, 0)
+                    l = int(nz > 0)
+                    tnz = (tnz >> 1) | (l << 3)
+                tnz >>= 2
+                lnz = (lnz >> 1) | (l << 5)
+            out_t |= (tnz << 4) << ch
+            out_l |= (lnz & 0xF0) << ch
+        top[0] = out_t & 0xFF
+        left[0] = out_l & 0xFF
+
+    def encode(self) -> bytes:
+        W = self.W
+        self.reconstruct()
+        mbs = []
+        for y in range(self.mb_h):
+            row = []
+            for x in range(self.mb_w):
+                i4 = bool(self.is_i4[y, x])
+                mb = {"segment": int(self.segment[y, x]), "i4x4": i4,
+                      "modes": self.bmodes[y, x].tolist() if i4 else [int(self.ymode[y, x])],
+                      "uv": int(self.uvmode[y, x]), "y2": self.y2_lv[y, x],
+                      "y": self.y_lv[y, x], "uv_levels": self.uv_lv[y, x]}
+                mb["skip"] = not (mb["y"].any() or mb["uv_levels"].any() or
+                                  (not i4 and mb["y2"].any()))
+                row.append(mb)
+            mbs.append(row)
+        hdr = _BoolWriter()
+        hdr.put(0, 0x80)  # colour space
+        hdr.put(0, 0x80)  # clamping
+        hdr.put(int(self.segments), 0x80)
+        if self.segments:
+            hdr.put(1, 0x80)  # update the map
+            hdr.put(1, 0x80)  # update the data
+            hdr.put(1, 0x80)  # absolute values
+            for qv in self.seg_q:
+                hdr.flag_signed(qv, 7)
+            for fv in self.seg_filter:
+                hdr.flag_signed(fv, 6)
+            seg_probs = [int(self.rng.integers(1, 256)) for _ in range(3)]
+            for pv in seg_probs:
+                hdr.put(1, 0x80)
+                hdr.bits(pv, 8)
+        hdr.put(int(self.filter_kind == "simple"), 0x80)
+        hdr.bits(self.level, 6)
+        hdr.bits(self.sharpness, 3)
+        hdr.put(1, 0x80)  # loop filter deltas on
+        hdr.put(1, 0x80)  # and updated
+        ref_delta = [int(self.rng.integers(-6, 7)), 0, 0, 0]
+        mode_delta = [int(self.rng.integers(-6, 7)), 0, 0, 0]
+        for dv in ref_delta + mode_delta:
+            hdr.flag_signed(dv, 6)
+        hdr.bits({1: 0, 2: 1, 4: 2, 8: 3}[self.num_parts], 2)
+        hdr.bits(self.seg_q[0], 7)
+        for _ in range(5):  # no quantiser deltas
+            hdr.put(0, 0x80)
+        hdr.put(0, 0x80)  # refresh entropy probabilities
+        for i in range(len(self.probs)):
+            if i in self.updates:
+                hdr.put(1, W.T.COEFFS_UPDATE_PROBA[i])
+                hdr.bits(self.updates[i], 8)
+            else:
+                hdr.put(0, W.T.COEFFS_UPDATE_PROBA[i])
+        skip_p = int(self.rng.integers(1, 256)) if self.skip_proba else 0
+        hdr.put(int(self.skip_proba), 0x80)
+        if self.skip_proba:
+            hdr.bits(skip_p, 8)
+        parts = [_BoolWriter() for _ in range(self.num_parts)]
+        intra_top = [W.B_DC] * (4 * self.mb_w)
+        nz_top = [[0, 0] for _ in range(self.mb_w)]
+        for mb_y, row in enumerate(mbs):
+            left_modes = [W.B_DC] * 4
+            tokens = parts[mb_y & (self.num_parts - 1)]
+            nz_left = [0, 0]
+            for mb_x, mb in enumerate(row):
+                if self.segments:
+                    s = mb["segment"]
+                    hdr.put(s >> 1, seg_probs[0])
+                    hdr.put(s & 1, seg_probs[1 + (s >> 1)])
+                if self.skip_proba:
+                    hdr.put(int(mb["skip"]), skip_p)
+                t = intra_top[4 * mb_x:4 * mb_x + 4]
+                if not mb["i4x4"]:
+                    hdr.put(1, 145)
+                    mode = mb["modes"][0]
+                    hdr.put(int(mode in (W.TM_PRED, W.H_PRED)), 156)
+                    if mode in (W.TM_PRED, W.H_PRED):
+                        hdr.put(int(mode == W.TM_PRED), 128)
+                    else:
+                        hdr.put(int(mode == W.V_PRED), 163)
+                    t = [mode] * 4
+                    left_modes = [mode] * 4
+                else:
+                    hdr.put(0, 145)
+                    for y in range(4):
+                        ymode = left_modes[y]
+                        for x in range(4):
+                            prob = W.T.BMODES_PROBA[(t[x] * 10 + ymode) * 9:
+                                                    (t[x] * 10 + ymode) * 9 + 9]
+                            mode = mb["modes"][4 * y + x]
+                            for node, bit in self.bmode_paths[mode]:
+                                hdr.put(bit, prob[node >> 1] if node else prob[0])
+                            ymode = mode
+                            t[x] = mode
+                        left_modes[y] = ymode
+                intra_top[4 * mb_x:4 * mb_x + 4] = t
+                uv = mb["uv"]
+                hdr.put(int(uv != W.DC_PRED), 142)
+                if uv != W.DC_PRED:
+                    hdr.put(int(uv != W.V_PRED), 114)
+                    if uv != W.V_PRED:
+                        hdr.put(int(uv == W.TM_PRED), 183)
+                if self.skip_proba and mb["skip"]:
+                    nz_top[mb_x][0] = nz_left[0] = 0
+                    if not mb["i4x4"]:
+                        nz_top[mb_x][1] = nz_left[1] = 0
+                else:
+                    self.residual_tokens(tokens, mb, nz_top[mb_x], nz_left)
+        first = hdr.finish()
+        sizes = [p.finish() for p in parts]
+        tag = (len(first) << 5) | (1 << 4)  # key frame, profile 0, shown
+        out = struct.pack("<I", tag)[:3] + b"\x9d\x01\x2a" + struct.pack("<HH", self.w, self.h)
+        out += first
+        for p in sizes[:-1]:
+            out += struct.pack("<I", len(p))[:3]
+        return out + b"".join(sizes)
+
+
+def vp8_frame(rgb: np.ndarray, rng, *, quality: int = 80, partitions: int = 1,
+              segments: bool = False, filter_kind: str = "normal", level: int = 20,
+              sharpness: int = 0, b_pred_share: float = 0.25, skip_proba: bool = True,
+              prob_updates: int = 8) -> bytes:
+    """A VP8 key frame (the payload of a "VP8 " chunk) of [h, w, 3] uint8
+    RGB: `quality` 0-100 to the quantiser index, 1-8 token `partitions`,
+    four `segments` with their own quantiser and filter level, the
+    `filter_kind` ("simple" or "normal") loop filter at `level` and
+    `sharpness`, a share of B_PRED macroblocks, the skip flag, and a few
+    token probability updates, all drawn from `rng`."""
+    q_index = int(np.clip(round((100 - quality) * 127 / 100), 0, 127))
+    return _Vp8Encoder(rgb, rng, q_index=q_index, partitions=partitions, segments=segments,
+                       filter_kind=filter_kind, level=level, sharpness=sharpness,
+                       b_pred_share=b_pred_share, skip_proba=skip_proba,
+                       prob_updates=prob_updates).encode()
+
+
+def webp_lossy_bytes(rgb: np.ndarray, rng, alpha: np.ndarray = None, alpha_method: int = 1,
+                     alpha_filter: int = 0, **kw) -> bytes:
+    """A lossy WebP of [h, w, 3] uint8 RGB: a simple "VP8 " file, or with
+    an [h, w] `alpha` a VP8X file with an ALPH chunk (raw where
+    `alpha_method` is 0, else a VP8L stream; `alpha_filter` 0-3: none,
+    horizontal, vertical, gradient); `kw` as vp8_frame."""
+    frame = riff_chunk(b"VP8 ", vp8_frame(rgb, rng, **kw))
+    if alpha is None:
+        return riff_webp(frame)
+    h, w = alpha.shape
+    return riff_webp(vp8x_chunk(w, h, alpha=True) + alph_chunk(alpha, alpha_method, alpha_filter)
+                     + frame)
+
+
+def vp8x_chunk(w: int, h: int, alpha: bool = False, animation: bool = False) -> bytes:
+    flags = (0x10 if alpha else 0) | (0x02 if animation else 0)
+    return riff_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + (w - 1).to_bytes(3, "little") +
+                      (h - 1).to_bytes(3, "little"))
+
+
+def alph_chunk(alpha: np.ndarray, method: int, filt: int) -> bytes:
+    """An ALPH chunk: the alpha plane filtered (none, horizontal, vertical,
+    gradient, predicting from the original values as libwebp's unfilter
+    does), raw or as a headerless VP8L stream in the green channel."""
+    a = alpha.astype(np.int64)
+    pred = np.zeros_like(a)
+    if filt:
+        pred[0, 1:] = a[0, :-1]  # the first row is always horizontal
+        if filt == 1:
+            pred[1:, 0] = a[:-1, 0]
+            pred[1:, 1:] = a[1:, :-1]
+        elif filt == 2:
+            pred[1:] = a[:-1]
+        else:
+            pred[1:, 0] = a[:-1, 0]
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    filtered = ((a - pred) & 0xFF).astype(np.uint32)
+    if method == 0:
+        body = filtered.astype(np.uint8).tobytes()
+    else:
+        body = webp_lossless_stream(filtered << 8, header=False, backrefs=True)
+    return riff_chunk(b"ALPH", bytes([method | filt << 2]) + body)
+
+
+def webp_animation_bytes(frames: list, canvas: tuple) -> bytes:
+    """An animated WebP on a `canvas` (w, h): frames [(frame chunks
+    (ALPH? + VP8/VP8L), x, y, w, h)] at even offsets, ANIM first."""
+    out = vp8x_chunk(*canvas, animation=True)
+    out += riff_chunk(b"ANIM", struct.pack("<IH", 0xFF000000, 0))
+    for data, x, y, w, h in frames:
+        head = (x // 2).to_bytes(3, "little") + (y // 2).to_bytes(3, "little") + \
+            (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little") + \
+            (100).to_bytes(3, "little") + bytes([0])
+        out += riff_chunk(b"ANMF", head + data)
+    return riff_webp(out)
+
+
 # -- near-dup corpus (harness code) ------------------------------------------
 
 NEAR_DUP_THRESHOLD = 10      # the job's DEFAULT_THRESHOLD
 # Encodings of the corpus: every PNG colour type and depth the decoder
 # takes, Adam7 and 16-bit PNG, the three BMP forms, JPEG (4:2:0, 4:2:2,
 # 4:4:4, gray, progressive, restart intervals, Adobe RGB), GIF (plain and
-# interlaced) and ICO (a PNG or a DIB frame beside a 16 px one).
+# interlaced), ICO (a PNG or a DIB frame beside a 16 px one), TIFF (LZW,
+# Deflate, PackBits and uncompressed, II and MM, strips and tiles, chunky
+# and planar, predictor 2, gray at 1, 8 and 16 bits, RGB at 8 and 16,
+# RGBA, palette at 4 and 8), DNG (its IFD0 preview), and WebP (lossless,
+# colour-indexed, lossy VP8, and VP8X with ALPH or two animation frames).
 IMAGE_KINDS = ("png_rgb", "png_rgba", "png_gray", "png_la", "png_pal8", "png_pal4",
                "png_pal2", "png_pal1", "png_gray4", "png_gray2", "png_gray1",
                "bmp24", "bmp32", "bmp8", "jpeg_420", "jpeg_422", "jpeg_444", "jpeg_gray",
                "jpeg_prog", "jpeg_rst", "jpeg_adobe", "gif", "gif_interlaced", "ico_png",
-               "ico_bmp", "png_adam7", "png_rgb16", "png_gray16", "png_rgba16")
-FORMATS = ("png", "bmp", "jpeg", "gif", "ico")
+               "ico_bmp", "png_adam7", "png_rgb16", "png_gray16", "png_rgba16",
+               "tiff_lzw", "tiff_deflate", "tiff_packbits", "tiff_raw", "dng",
+               "webp_lossless", "webp_palette", "webp_lossy", "webp_extended")
+FORMATS = ("png", "bmp", "jpeg", "gif", "ico", "tiff", "webp")
 CORPUS_DIR_FILES = 500
 # 6 x 6 x 6 colour cube: the 8-bit palette of the pal8 and bmp8 kinds.
 CUBE = np.stack(np.meshgrid(*[np.arange(6) * 51] * 3, indexing="ij"), -1).reshape(-1, 3)
@@ -1765,17 +3002,126 @@ def image_scene(rng, h: int, w: int, noise: float = 1.5) -> np.ndarray:
 
 def kind_format(kind: str) -> str:
     """The file format of an IMAGE_KINDS entry (one of FORMATS)."""
-    return kind.split("_")[0].rstrip("0123456789")
+    return "tiff" if kind == "dng" else kind.split("_")[0].rstrip("0123456789")
 
 
 def kind_extension(kind: str) -> str:
-    return {"jpeg": "jpg"}.get(kind_format(kind), kind_format(kind))
+    return "dng" if kind == "dng" else {"jpeg": "jpg", "tiff": "tif"}.get(kind_format(kind),
+                                                                         kind_format(kind))
+
+
+def tiff_kind(rng, rgb: np.ndarray, kind: str) -> bytes:
+    """A TIFF or DNG of [h, w, 3] uint8 `rgb` as `kind` (its layout drawn
+    from `rng`); every variant but the 1-bit, palette and gray ones reads
+    back to the pixels' own L plane."""
+    from spacedrive_tpu_torch.media.imgdecode import l24
+
+    h, w, _ = rgb.shape
+    order = "<>"[int(rng.integers(0, 2))]
+    strip = int(rng.integers(1, 65))
+    if kind == "dng":
+        mosaic = rgb.astype(np.int64)[..., 1] * 257
+        mosaic[0::2, 0::2] = rgb[0::2, 0::2, 0].astype(np.int64) * 257
+        mosaic[1::2, 1::2] = rgb[1::2, 1::2, 2].astype(np.int64) * 257
+        return dng_bytes(rgb, mosaic, order, compression=int(rng.choice([1, 5])))
+    if kind == "tiff_lzw":
+        return tiff_bytes(tiff_image(rgb, 2, 8, order=order, compression=5,
+                                     predictor=int(rng.integers(1, 3)), rows_per_strip=strip),
+                          order=order)
+    if kind == "tiff_deflate":
+        wide = rng.random() < 0.5
+        samples = rgb.astype(np.int64) * 257 + rng.integers(0, 2, rgb.shape) if wide else rgb
+        tile = (16 * int(rng.integers(1, 9)), 16 * int(rng.integers(1, 9))) \
+            if rng.random() < 0.6 else None
+        return tiff_bytes(tiff_image(samples, 2, 16 if wide else 8, order=order,
+                                     compression=int(rng.choice([8, 32946])),
+                                     predictor=int(rng.integers(1, 3)),
+                                     planar=int(rng.integers(1, 3)), tile=tile,
+                                     rows_per_strip=strip), order=order)
+    luma = l24(rgb)
+    if kind == "tiff_packbits":
+        pick = int(rng.integers(0, 3))
+        if pick == 0:  # 8-bit gray, black or white is zero
+            photometric = int(rng.integers(0, 2))
+            img = tiff_image(luma if photometric else 255 - luma, photometric, 8, order=order,
+                             compression=32773, rows_per_strip=strip)
+        elif pick == 1:
+            idx = (rgb.astype(np.int32) * 6 // 256) @ np.array([36, 6, 1])
+            img = tiff_image(idx, 3, 8, order=order, compression=32773, rows_per_strip=strip,
+                             colormap=CUBE * 257)
+        else:
+            levels = luma.astype(np.int64) >> 4
+            ramp = np.arange(16) * 17 * 257
+            img = tiff_image(levels, 3, 4, order=order, compression=32773,
+                             rows_per_strip=strip, colormap=np.stack([ramp, ramp[::-1], ramp], 1))
+        return tiff_bytes(img, order=order)
+    pick = int(rng.integers(0, 4))  # tiff_raw
+    if pick == 0:  # 1-bit, white or black is zero
+        photometric = int(rng.integers(0, 2))
+        bits = (luma >= 128).astype(np.int64)
+        img = tiff_image(bits if photometric else 1 - bits, photometric, 1, order=order,
+                         rows_per_strip=strip)
+    elif pick == 1:  # I;16, a few samples past 255
+        values = luma.astype(np.int64) + (rng.random((h, w)) < 0.01) * 1000
+        img = tiff_image(values, 1, 16, order=order, rows_per_strip=strip)
+    elif pick == 2:  # RGBA, associated or unassociated alpha
+        alpha = rng.integers(128, 256, (h, w, 1))
+        assoc = rng.random() < 0.5
+        colour = rgb.astype(np.int64) * alpha // 255 if assoc else rgb.astype(np.int64)
+        img = tiff_image(np.concatenate([colour, alpha], 2), 2, 8, order=order,
+                         extra=(1,) if assoc else (2,), rows_per_strip=strip)
+    else:  # RGB at 16 bits, as BigTIFF in one case of two (PIL reads II only)
+        samples = rgb.astype(np.int64) * 257
+        if rng.random() < 0.5:
+            return tiff_bytes(tiff_image(samples, 2, 16, rows_per_strip=strip), order="<",
+                              bigtiff=True)
+        img = tiff_image(samples, 2, 16, order=order, rows_per_strip=strip)
+    return tiff_bytes(img, order=order)
+
+
+def webp_kind(rng, rgb: np.ndarray, kind: str) -> bytes:
+    """A WebP of [h, w, 3] uint8 `rgb` as `kind`, its options drawn from
+    `rng`."""
+    h, w, _ = rgb.shape
+    if kind == "webp_lossless":
+        alpha = rng.integers(0, 256, (h, w)) if rng.random() < 0.3 else None
+        return webp_lossless_bytes(rgb, alpha, predictor_bits=int(rng.integers(2, 6)),
+                                   subtract_green=bool(rng.random() < 0.7),
+                                   cache_bits=int(rng.integers(0, 11)))
+    if kind == "webp_palette":  # 8 or 16 colours, pixels bundled two to a byte
+        levels = (rgb >= 128).astype(np.uint8) * 255
+        if rng.random() < 0.5:
+            levels[..., 1] = (rgb[..., 1] >> 6) * 85
+        return webp_lossless_bytes(levels, palette=True, cache_bits=int(rng.integers(0, 5)))
+    lossy = dict(quality=int(rng.integers(40, 96)), partitions=int(rng.choice([1, 2, 4, 8])),
+                 segments=bool(rng.random() < 0.5),
+                 filter_kind=("simple", "normal")[int(rng.integers(0, 2))],
+                 level=int(rng.integers(0, 64)), sharpness=int(rng.integers(0, 8)),
+                 b_pred_share=0.1)
+    if kind == "webp_lossy":
+        return webp_lossy_bytes(rgb, rng, **lossy)
+    if rng.random() < 0.5 or h < 4 or w < 4:  # VP8X with an ALPH chunk
+        return webp_lossy_bytes(rgb, rng, alpha=rng.integers(0, 256, (h, w)),
+                                alpha_method=int(rng.integers(0, 2)),
+                                alpha_filter=int(rng.integers(0, 4)), **lossy)
+    # Two animation frames: the first a part of the picture at an even
+    # offset (the rest of the canvas stays transparent black), the second
+    # the whole picture.
+    fh, fw = int(rng.integers(h // 2, h + 1)), int(rng.integers(w // 2, w + 1))
+    y0 = 2 * int(rng.integers(0, (h - fh) // 2 + 1))
+    x0 = 2 * int(rng.integers(0, (w - fw) // 2 + 1))
+    part = rgb[y0:y0 + fh, x0:x0 + fw]
+    first = riff_chunk(b"VP8L", webp_lossless_stream(rgb_to_argb(part), predictor_bits=3)) \
+        if rng.random() < 0.5 else riff_chunk(b"VP8 ", vp8_frame(part, rng, **lossy))
+    second = riff_chunk(b"VP8 ", vp8_frame(rgb, rng, **lossy))
+    return webp_animation_bytes([(first, x0, y0, fw, fh), (second, 0, 0, w, h)], (w, h))
 
 
 def encode_image(rng, rgb: np.ndarray, kind: str, filters=None) -> tuple:
     """(file bytes, extension) of [h, w, 3] uint8 `rgb` as `kind`; PNG rows
-    take `filters` (one 0..4 per row; random when None). ICO kinds keep at
-    most 256 x 256 of the pixels."""
+    take `filters` (one 0..4 per row; random when None). ICO and WebP kinds
+    keep at most 256 x 256 of the pixels (the WebP writers are Python
+    loops)."""
     from spacedrive_tpu_torch.media.imgdecode import l24
 
     h, w, _ = rgb.shape
@@ -1797,6 +3143,10 @@ def encode_image(rng, rgb: np.ndarray, kind: str, filters=None) -> tuple:
         return jpeg_bytes(rgb, quality, sampling, progressive=kind == "jpeg_prog",
                           restart=int(rng.integers(1, 9)) if kind == "jpeg_rst" else 0,
                           adobe_rgb=kind == "jpeg_adobe"), ext
+    if kind_format(kind) == "tiff":
+        return tiff_kind(rng, rgb, kind), ext
+    if kind.startswith("webp"):
+        return webp_kind(rng, rgb[:256, :256], kind), ext
     idx8 = ((rgb.astype(np.int32) * 6 // 256) @ np.array([36, 6, 1])).astype(np.uint8)
     if kind.startswith("gif"):
         return gif_bytes(idx8, CUBE, local=bool(rng.random() < 0.5),
@@ -1895,6 +3245,19 @@ def _corpus_task(root: Path, seed: int, sides, task) -> tuple:
                 members.append((names[4], data))
                 break
             redrawn += 1
+        # A lossless TIFF (distance 0), then a lossy WebP kept as the JPEG is.
+        members.append((names[5], tiff_kind(rng, rgb, ("tiff_lzw", "tiff_deflate")[
+            int(rng.integers(0, 2))])))
+        for _ in range(8):
+            data = webp_lossy_bytes(rgb, rng, quality=int(rng.integers(75, 96)),
+                                    partitions=int(rng.choice([1, 2, 4, 8])),
+                                    segments=bool(rng.random() < 0.5),
+                                    filter_kind=("simple", "normal")[int(rng.integers(0, 2))],
+                                    level=int(rng.integers(0, 40)), b_pred_share=0.1)
+            if np.bitwise_count(plain_phash_of_file(data) ^ base).sum() <= NEAR_DUP_THRESHOLD:
+                members.append((names[6], data))
+                break
+            redrawn += 1
         for path, data in members:
             (root / path).write_bytes(data)
             total += len(data)
@@ -1909,18 +3272,37 @@ def _corpus_task(root: Path, seed: int, sides, task) -> tuple:
         total = len(data)
     else:
         px = np.clip(image_scene(rng, 40, 60), 0, 255).astype(np.uint8)
-        if k % 4 == 0:
+        if k % 6 == 0:
             data = encode_image(rng, px, "png_rgb")[0]
             data = data[:int(rng.integers(16, len(data) - 20))]
-        elif k % 4 == 1:
+        elif k % 6 == 1:
             data = jpeg_bytes(px)[:-2]
-        elif k % 4 == 2:
+        elif k % 6 == 2:
             data = rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+        elif k % 6 == 3:
+            data = tiff_kind(rng, px, "tiff_lzw")
+            data = data[:int(rng.integers(8, len(data) - 8))]
+        elif k % 6 == 4:
+            data = webp_vp8_cut(rng, px)
         else:
             data = jpeg_bytes(px).replace(b"\xff\xc0", b"\xff\xc9", 1)
         (root / names[0]).write_bytes(data)
         total = len(data)
     return total, planted, redrawn
+
+
+def webp_vp8_cut(rng, rgb: np.ndarray) -> bytes:
+    """A lossy WebP whose VP8 data is cut short inside its token
+    partition, the chunk and RIFF sizes made to match: a container
+    libwebp takes, a frame it cannot finish."""
+    frame = vp8_frame(rgb, rng, quality=90)
+    first = (frame[0] | frame[1] << 8 | frame[2] << 16) >> 5
+    keep = 10 + first + max(1, (len(frame) - 10 - first) // 4)
+    return riff_webp(riff_chunk(b"VP8 ", frame[:keep]))
+
+
+# The refused files in turn: their extensions.
+REFUSED_EXTENSIONS = ("png", "jpg", "jpg", "tif", "webp", "jpg")
 
 
 def write_image_corpus(root: Path, n_files: int, groups: int, copies: int, refused: int,
@@ -1930,21 +3312,23 @@ def write_image_corpus(root: Path, n_files: int, groups: int, copies: int, refus
     height), on `executor`'s workers (in this process when None):
 
     - `groups` planted near-dup groups: a scene as RGB PNG, the same pixels
-      re-encoded with other row filters (distance 0, other bytes) and as a
-      24-bit BMP (distance 0), the scene with added noise of σ 3-6 and a
-      JPEG of the scene (quality 75-95, any chroma sampling, some
-      progressive), each of the last two kept where the plain path puts it
-      within the threshold of the original (redrawn up to 8 times, else
-      left out);
+      re-encoded with other row filters (distance 0, other bytes), as a
+      24-bit BMP and as a lossless TIFF (distance 0), the scene with added
+      noise of σ 3-6, a JPEG of the scene (quality 75-95, any chroma
+      sampling, some progressive) and a lossy WebP of it (quality 75-95,
+      1-8 partitions, segments, either loop filter), each of the last three
+      kept where the plain path puts it within the threshold of the
+      original (redrawn up to 8 times, else left out);
     - `copies` byte-identical copies of other images (one object each);
     - `refused` files the decoder must refuse: a truncated PNG, a JPEG
-      without its EOI, a .jpg of random bytes, a JPEG whose frame header
-      claims arithmetic coding, in turn (PIL refuses the first three and
-      decodes the last as noise);
+      without its EOI, a .jpg of random bytes, a truncated TIFF, a WebP
+      whose VP8 data is cut, a JPEG whose frame header claims arithmetic
+      coding, in turn (PIL refuses all but the last, which it decodes as
+      noise);
     - the rest, single images of every kind in IMAGE_KINDS in turn.
 
     Returns {"planted": [(path, path)], "refused": [path], "files", "bytes",
-    "redrawn"}, paths relative to `root`."""
+    "redrawn", "kinds": {kind: single files}}, paths relative to `root`."""
     import functools
 
     counter = [0]
@@ -1954,12 +3338,16 @@ def write_image_corpus(root: Path, n_files: int, groups: int, copies: int, refus
         counter[0] += 1
         return f"d{k // CORPUS_DIR_FILES:03d}/img{k:06d}.{ext}"
 
-    tasks = [("group", g, [name("png"), name("png"), name("bmp"), name("png"), name("jpg")])
+    tasks = [("group", g, [name(e) for e in ("png", "png", "bmp", "png", "jpg", "tif", "webp")])
              for g in range(groups)]
-    singles = n_files - 5 * groups - copies - refused
+    singles = n_files - 7 * groups - copies - refused
+    if singles < copies:  # the copies are of single images
+        raise ValueError(f"{n_files} files cannot hold {groups} groups of 7, {copies} copies "
+                         f"and {refused} refused files beside the singles copied")
     tasks += [("single", k, [name(kind_extension(IMAGE_KINDS[k % len(IMAGE_KINDS)]))])
               for k in range(singles)]
-    tasks += [("refused", k, [name("jpg" if k % 4 else "png")]) for k in range(refused)]
+    tasks += [("refused", k, [name(REFUSED_EXTENSIONS[k % len(REFUSED_EXTENSIONS)])])
+              for k in range(refused)]
     copy_of = {name(t[2][0].rsplit(".", 1)[1]): t[2][0]
                for t in tasks[groups:groups + copies]}
     for d in sorted({p.split("/")[0] for t in tasks for p in t[2]} |
@@ -1967,7 +3355,14 @@ def write_image_corpus(root: Path, n_files: int, groups: int, copies: int, refus
         (root / d).mkdir(parents=True, exist_ok=True)
     work = functools.partial(_corpus_task, root, seed, sides)
     if executor is not None:
-        results = list(executor.map(work, tasks, chunksize=max(1, len(tasks) // 64)))
+        # The groups cost the most: spread them over the chunks (each
+        # task draws from its own generator, so the order changes nothing).
+        order = np.random.default_rng(seed).permutation(len(tasks))
+        done = list(executor.map(work, [tasks[i] for i in order],
+                                 chunksize=max(1, len(tasks) // 256)))
+        results = [None] * len(tasks)
+        for i, r in zip(order.tolist(), done):
+            results[i] = r
     else:
         results = [work(t) for t in tasks]
     total = sum(r[0] for r in results)
@@ -1978,7 +3373,9 @@ def write_image_corpus(root: Path, n_files: int, groups: int, copies: int, refus
     planted = [p for r in results for p in r[1]]
     return {"planted": planted, "refused": sorted(t[2][0] for t in tasks if t[0] == "refused"),
             "files": len(tasks) + len(planted) + len(copy_of), "bytes": total,
-            "redrawn": sum(r[2] for r in results)}
+            "redrawn": sum(r[2] for r in results),
+            "kinds": dict(collections.Counter(IMAGE_KINDS[k % len(IMAGE_KINDS)]
+                                              for k in range(singles)))}
 
 
 def near_dup_state(lib, root: str, location_id: int = None) -> dict:
@@ -2127,7 +3524,7 @@ def plain_grids(paths: list, executor) -> list:
 def file_format(path: str) -> str:
     """The FORMATS entry of a corpus file, by its extension."""
     ext = path.rsplit(".", 1)[-1]
-    return {"jpg": "jpeg"}.get(ext, ext)
+    return {"jpg": "jpeg", "tif": "tiff", "dng": "tiff"}.get(ext, ext)
 
 
 def check_near_dup_location(name: str, root: Path, lib, location_id: int, made: dict,
@@ -2138,6 +3535,8 @@ def check_near_dup_location(name: str, root: Path, lib, location_id: int, made: 
     from spacedrive_tpu_torch.ops import phash
 
     state = near_dup_state(lib, str(root), location_id)
+    require(set(made["kinds"]) == set(IMAGE_KINDS),
+            f"{name}: the corpus lacks the kinds {sorted(set(IMAGE_KINDS) - set(made['kinds']))}")
     require(report.status == JobStatus.COMPLETED_WITH_ERRORS,
             f"{name}: near-dup job ended {report.status.name}: {report.errors_text[:2]}")
     require(state["errors"] == made["refused"],
@@ -2161,9 +3560,13 @@ def check_near_dup_location(name: str, root: Path, lib, location_id: int, made: 
     require(set(sample_formats) == set(FORMATS),
             f"{name}: the plain sample holds {dict(sample_formats)}, not every format")
     by_format = collections.defaultdict(list)
+    webp_by_chunk = collections.defaultdict(list)  # VP8L, VP8 or VP8X (ALPH, animation)
     for p, dt in seconds.items():
         if grids[p] is not None:
             by_format[file_format(p)].append(dt)
+            if file_format(p) == "webp":
+                with open(p, "rb") as f:
+                    webp_by_chunk[f.read(16)[12:16].decode().strip()].append(dt)
     paths = sorted(state["hashes"])
     stored = np.stack([state["hashes"][p] for p in paths])
     g = np.stack([decoded[p] for p in paths])
@@ -2189,6 +3592,9 @@ def check_near_dup_location(name: str, root: Path, lib, location_id: int, made: 
                 decode_ms_per_image_by_format={
                     f: float(np.mean(by_format[f])) * 1e3 for f in FORMATS},
                 images_by_format={f: len(by_format[f]) for f in FORMATS},
+                decode_ms_webp_by_first_chunk={k: float(np.mean(v)) * 1e3
+                                               for k, v in sorted(webp_by_chunk.items())},
+                webp_by_first_chunk={k: len(v) for k, v in sorted(webp_by_chunk.items())},
                 plain_sample_by_format=dict(sample_formats),
                 decode_s_per_step=phase_s["decode"] / steps,
                 phash_host_s_per_step=phase_s["phash"] / steps,

@@ -17,10 +17,18 @@ from the bytes' signature, as PIL finds it, never from the file's name:
   (``media/jpeg.py``, ``csrc/jpegdec.cpp``);
 - GIF, the first frame (``media/gif.py``, its LZW in ``csrc/imgdec.cpp``);
 - ICO, the frame PIL takes: a PNG frame as above, or a DIB at 1, 4, 8, 24
-  or 32 bits.
+  or 32 bits;
+- TIFF and DNG's first IFD: none, LZW, Deflate and PackBits, predictor 2,
+  strips and tiles, chunky and planar, II and MM, little-endian BigTIFF,
+  gray at 1-16 bits, RGB(A) at 8 and 16, palette (``media/tiff.py``, its
+  strips and tiles in ``csrc/tiffdec.cpp``);
+- WebP: lossless, lossy, with ALPH, an animation's first frame on its
+  canvas (``media/webp.py``, ``csrc/webpdec.cpp``).
 
-TIFF, WebP, HEIF/AVIF, BMP bit fields or RLE, 1/4-bit BMP files, ≤ 2-colour
-8-bit BMP, and what ``media/jpeg.py`` and ``media/gif.py`` list raise.
+HEIF/AVIF (PIL here has no HEIF plugin and reads AVIF through libavif; the
+port decodes neither HEVC nor AV1), BMP bit fields or RLE, 1/4-bit BMP
+files, ≤ 2-colour 8-bit BMP, and what ``media/jpeg.py``, ``media/gif.py``,
+``media/tiff.py`` and ``media/webp.py`` list raise.
 What PIL does, and this module with it:
 
 - to L: RGB, RGBA and BGR(X) pixels go through ``L24``,
@@ -39,7 +47,9 @@ What PIL does, and this module with it:
 
 ``native=False`` runs the plain versions of the native passes
 (``png_unfilter_plain``, ``l24``, ``resize_lanczos``,
-``jpeg.decode_plain``, ``gif.lzw_plain``): the tests and ``chip_smoke.py``
+``jpeg.decode_plain``, ``gif.lzw_plain``, ``tiff.chunk_plain``,
+``webp.lossless_plain``, ``webp.lossy_plain``, ``webp.alpha_plain``): the
+tests and ``chip_smoke.py``
 decode with it to hold one against the other; nothing on the main path
 runs them, and no fault of the native plane falls back to them.
 """
@@ -74,6 +84,10 @@ BMP_HEADERS = (40, 52, 56, 64, 108, 124)  # BITMAPINFOHEADER .. V5
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
 ICO_SIGNATURE = b"\x00\x00\x01\x00"
+# PIL's TIFF prefixes: classic and BigTIFF, and the two "invalid" classic
+# headers it still takes.
+TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II\x00*", b"MM*\x00", b"II+\x00", b"MM\x00+")
+WEBP_CHUNKS = (b"VP8 ", b"VP8L", b"VP8X")  # the first chunks PIL takes
 
 
 class UnsupportedImage(ValueError):
@@ -122,7 +136,16 @@ def decode_luma(data: bytes, *, native: bool = True) -> np.ndarray:
         return gif.decode_luma(data, native)
     if data[:4] == ICO_SIGNATURE:
         return _ico_luma(data, native)
-    raise UnsupportedImage("not a PNG, BMP, JPEG, GIF or ICO")
+    if data[:4] in TIFF_SIGNATURES:
+        from . import tiff
+        return tiff.decode_luma(data, native)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in WEBP_CHUNKS:
+        from . import webp
+        return webp.decode_luma(data, native)
+    if data[4:8] == b"ftyp":
+        raise UnsupportedImage("HEIF or AVIF (an ISO BMFF file): the port decodes neither "
+                               "HEVC nor AV1")
+    raise UnsupportedImage("not a PNG, BMP, JPEG, GIF, ICO, TIFF or WebP")
 
 
 def _jpeg_luma(data: bytes, native: bool) -> np.ndarray:

@@ -226,3 +226,61 @@ def jpeg_decode(data: bytes) -> np.ndarray:
     if status:
         raise UnsupportedImage(REASONS[status])
     return out[..., 0] if c == 1 else out
+
+
+def tiff_chunks(data: bytes, route: int, offsets, counts, planes: int, down: int,
+                across: int, tw: int, tl: int, tiled: bool, w: int, h: int, per_plane: int,
+                depth: int, predictor: int, big: bool) -> tuple:
+    """Every strip or tile of a TIFF image decoded and placed in one call of
+    csrc/tiffdec.cpp → (status, [planes, h, image rowbytes] uint8 or None),
+    status as ``media.tiff.REASONS``. The plain version is
+    ``media.tiff.chunks_plain``."""
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    counts = np.ascontiguousarray(counts, dtype=np.int64)
+    if offsets.shape != (planes * down * across,) or counts.shape != offsets.shape or \
+            min(tw, tl, w, h, per_plane) < 1 or depth not in (1, 2, 4, 8, 16):
+        raise ValueError(f"tiff_chunks: {offsets.shape} chunks for {planes} x {down} x "
+                         f"{across}, {tw} x {tl} of {w} x {h}, {per_plane} x {depth} bits")
+    src = np.frombuffer(data, np.uint8)
+    out = np.zeros((planes, h, (w * per_plane * depth + 7) // 8), np.uint8)
+    status = _build.library("tiffdec").sd_tiff_chunks(
+        _ptr(src, ctypes.c_uint8), src.size, route, _ptr(offsets, ctypes.c_int64),
+        _ptr(counts, ctypes.c_int64), planes, down, across, tw, tl, int(tiled), w, h,
+        per_plane, depth, predictor, int(big), _ptr(out, ctypes.c_uint8))
+    return int(status), (out if status == 0 else None)
+
+
+def _webp_rgb(fn: str, payload: bytes, width: int, height: int) -> tuple:
+    if width < 1 or height < 1:
+        raise ValueError(f"{fn}: frame {width}x{height}")
+    src = np.frombuffer(payload, np.uint8)
+    out = np.empty((height, width, 3), np.uint8)
+    status = getattr(_build.library("webpdec"), fn)(
+        _ptr(src, ctypes.c_uint8), src.size, width, height, _ptr(out, ctypes.c_uint8))
+    return int(status), (out if status == 0 else None)
+
+
+def webp_lossless(payload: bytes, width: int, height: int) -> tuple:
+    """A VP8L chunk's payload (to the end of the frame's bytes) of a
+    width x height frame → (status, [h, w, 3] uint8 RGB or None), in one
+    call of csrc/webpdec.cpp; status as ``media.webp.REASONS``. The plain
+    version is ``media.webp.lossless_plain``."""
+    return _webp_rgb("sd_webp_lossless", payload, width, height)
+
+
+def webp_lossy(payload: bytes, width: int, height: int) -> tuple:
+    """A VP8 key frame's payload → (status, [h, w, 3] uint8 RGB or None),
+    libwebp's reconstruction, loop filter, fancy upsampling and YUV to
+    RGB. The plain version is ``media.webp.lossy_plain``."""
+    return _webp_rgb("sd_webp_lossy", payload, width, height)
+
+
+def webp_alpha(payload: bytes, width: int, height: int) -> int:
+    """An ALPH chunk's payload of a width x height frame → the status
+    libwebp's alpha decoder ends with (0 where it decodes). The plain
+    version is ``media.webp.alpha_plain``."""
+    if width < 1 or height < 1:
+        raise ValueError(f"webp_alpha: frame {width}x{height}")
+    src = np.frombuffer(payload, np.uint8)
+    return int(_build.library("webpdec").sd_webp_alpha(
+        _ptr(src, ctypes.c_uint8), src.size, width, height))

@@ -14,10 +14,11 @@ the pyramid past it), at any N. ``"plain"`` runs the same torch code on the
 CPU, exact up to ``ALL_PAIRS_LIMIT`` digests and LSH banding past it, which
 is what the JAX package does without a TPU. Nothing routes card work to the
 CPU. Images are decoded on the host by ``media/imgdecode.py`` under either
-backend (PNG, BMP, JPEG, GIF and ICO, read by their bytes, to PIL's grid);
-a file it refuses (TIFF, WebP, HEIF and the rest that module lists) is a
-job error, ``phash decode failed: <path>``, as in the JAX package where
-PIL refuses it too. Any other
+backend (PNG, BMP, JPEG, GIF, ICO, TIFF with DNG's first IFD, and WebP,
+read by their bytes, to PIL's grid); a file it refuses (HEIF, AVIF and
+the rest that module lists) is a job error, ``phash decode failed:
+<path>``, as in the JAX package where PIL refuses it too (PIL here reads
+AVIF, which the port refuses). Any other
 failure of a hash step (the native plane's build or load, the card) is no
 file's fault and fails the job.
 """

@@ -99,6 +99,19 @@ _SIGNATURES = {
         "sd_jpeg_decode": (
             [_u8p, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
     },
+    "webpdec": {
+        "sd_webp_lossless": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
+        "sd_webp_alpha": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64], ctypes.c_int64),
+        "sd_webp_lossy": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
+    },
+    "tiffdec": {
+        "sd_tiff_chunks": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, _i64p, _i64p] + [ctypes.c_int64] * 12
+            + [_u8p], ctypes.c_int64),
+    },
     "sdio_stage": {
         "sd_stage_large": (
             [ctypes.c_int64, _charpp, _u64p, _u8p, _i32p, ctypes.c_int], None),

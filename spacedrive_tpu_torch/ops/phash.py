@@ -2,7 +2,8 @@
 
 Port of ``spacedrive_tpu/ops/phash.py``. Each image is decoded on the host
 to a 32×32 grayscale grid (``media/imgdecode.py``, PIL's grid bit for bit:
-PNG, BMP, JPEG, GIF and ICO; anything else is a decode error),
+PNG, BMP, JPEG, GIF, ICO, TIFF (DNG's first IFD too) and WebP; anything
+else is a decode error),
 the batch's 2-D DCT-II is ``D @ X @ Dᵀ`` on the device, the 8×8
 low-frequency block without its DC term is thresholded against its median:
 63 bits, packed [B, 2] uint32 with one zero pad bit, the words

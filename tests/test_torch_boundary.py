@@ -89,9 +89,12 @@ def test_scan_covers_the_staging_plane_the_ring_and_the_scan_chain():
             port / "objects" / "identifier.py", port / "media" / "imgdecode.py",
             port / "ops" / "phash.py", port / "ops" / "hamming.py",
             port / "ops" / "hamming_cuda.py", port / "objects" / "dedup.py",
-            port / "media" / "jpeg.py", port / "media" / "gif.py"} <= set(PORT_FILES)
+            port / "media" / "jpeg.py", port / "media" / "gif.py",
+            port / "media" / "tiff.py", port / "media" / "webp.py",
+            port / "media" / "webp_tables.py"} <= set(PORT_FILES)
     assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp",
-                                                 "hamming.cu", "imgdec.cpp", "jpegdec.cpp"}
+                                                 "hamming.cu", "imgdec.cpp", "jpegdec.cpp",
+                                                 "tiffdec.cpp", "webpdec.cpp"}
 
 
 def _foreign_includes(path: Path, text: str):

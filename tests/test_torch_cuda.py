@@ -434,7 +434,7 @@ def test_near_dup_job_on_the_card_matches_plain(cuda, tmp_path):
     from spacedrive_tpu_torch.ops import hamming_cuda, phash
 
     root = tmp_path / "images"
-    planted = chip_smoke.write_image_corpus(root, 60, groups=8, copies=3, refused=2, seed=5,
+    planted = chip_smoke.write_image_corpus(root, 76, groups=8, copies=3, refused=2, seed=5,
                                             sides=((24, 200), (24, 160)))["planted"]
     results = {}
     for backend in ("cuda", "plain"):

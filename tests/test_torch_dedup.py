@@ -1,11 +1,15 @@
 """The port's NearDupDetectorJob against the JAX package's, on the CPU.
 
-One corpus (PNG of every colour type and depth, Adam7 and 16-bit PNG, BMP,
-JPEG of every chroma sampling, gray, progressive, with restart intervals
-and Adobe RGB, GIF, ICO, planted near-dup groups — the same pixels
-re-encoded, as BMP, with added noise and as JPEG —, a byte-identical copy,
-two identical non-image files, and a truncated PNG, a JPEG without EOI
-and random bytes that both decoders refuse) is scanned and searched by the JAX package
+One corpus (one file of every ``chip_smoke.IMAGE_KINDS`` entry: PNG of
+every colour type and depth, Adam7 and 16-bit PNG, BMP, JPEG of every
+chroma sampling, gray, progressive, with restart intervals and Adobe RGB,
+GIF, ICO, TIFF (LZW, Deflate, PackBits, uncompressed), a DNG-shaped file,
+WebP (lossless, colour-indexed, lossy, VP8X with ALPH or an animation);
+planted near-dup groups — the same pixels re-encoded, as BMP and TIFF,
+with added noise, as JPEG and as lossy WebP —, a byte-identical copy, two
+identical non-image files, and a truncated PNG, a JPEG without EOI, random
+bytes, a truncated TIFF and a WebP whose VP8 data is cut, which both
+decoders refuse) is scanned and searched by the JAX package
 (``backend="numpy"``: PIL decode, numpy pHash) and by the port
 (``backend="plain"``: its own decoder, the torch pHash on the CPU), each in
 a library of its own. The two must store the same pHash per path, the same
@@ -43,10 +47,12 @@ def _one_torch_thread():
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     root = tmp_path_factory.mktemp("images")
-    made = chip_smoke.write_image_corpus(root, 45, groups=2, copies=1, refused=3, seed=21,
-                                         sides=((24, 120), (24, 100)))
+    n_singles = len(chip_smoke.IMAGE_KINDS)  # one file of each kind
+    made = chip_smoke.write_image_corpus(root, n_singles + 7 * 2 + 1 + 5, groups=2, copies=1,
+                                         refused=5, seed=21, sides=((24, 120), (24, 100)))
+    assert set(made["kinds"]) == set(chip_smoke.IMAGE_KINDS)
     kinds = {p.suffix for p in root.rglob("*.*")}
-    assert kinds >= {".png", ".bmp", ".jpg", ".gif", ".ico"}
+    assert kinds >= {".png", ".bmp", ".jpg", ".gif", ".ico", ".tif", ".dng", ".webp"}
     (root / "d000" / "a.bin").write_bytes(b"D" * 5000)
     (root / "d000" / "b.bin").write_bytes(b"D" * 5000)
     return root, made

@@ -2,9 +2,11 @@
 
 ``spacedrive_tpu_torch/media/imgdecode.py`` must give the 32×32 grid of
 ``PIL.Image.open(p).convert("L").resize((32, 32), Image.LANCZOS)`` (the JAX
-package's ``image_to_grid``) on every PNG, BMP, GIF and ICO it takes (JPEG
-has ``tests/test_torch_jpeg.py``), through its native C++ passes and
-through their plain versions, and raise on everything else. Images of
+package's ``image_to_grid``) on every PNG, BMP, GIF and ICO it takes (JPEG,
+TIFF and WebP have ``tests/test_torch_jpeg.py``, ``test_torch_tiff.py`` and
+``test_torch_webp.py``), through its native C++ passes and through their
+plain versions, and raise on everything else (``UNSUPPORTED``: AVIF, and a
+sample of each format's refusals). Images of
 1–80 px a side come from hypothesis through the test-side writers in
 ``chip_smoke.py`` (every PNG colour type and depth, 16-bit included,
 Adam7 or not, the row filter forced per row), and from PIL's own encoders;
@@ -268,6 +270,12 @@ def test_png_chunk_walk_refuses_what_pil_refuses(case):
         pil_grid(_png_walk(case))
 
 
+def _pil_tiff_compressed(mode: str, compression: str) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(_scene()).convert(mode).save(buf, "TIFF", compression=compression)
+    return buf.getvalue()
+
+
 def _jpeg(**kw) -> bytes:
     rng = np.random.default_rng(7)
     return chip_smoke.jpeg_bytes(rng.integers(0, 256, (20, 28, 3), dtype=np.uint8), **kw)
@@ -308,9 +316,62 @@ def _gif(**kw) -> bytes:
     return chip_smoke.gif_bytes(rng.integers(0, 4, (9, 11)), rng.integers(0, 256, (4, 3)), **kw)
 
 
+def _scene(h: int = 20, w: int = 28) -> np.ndarray:
+    return np.clip(chip_smoke.image_scene(np.random.default_rng(4), h, w), 0, 255).astype(
+        np.uint8)
+
+
+def _tiff(**kw) -> bytes:
+    return chip_smoke.tiff_bytes(chip_smoke.tiff_image(_scene(), 2, 8, **kw))
+
+
+def _webp_lossy(**kw) -> bytes:
+    return chip_smoke.webp_lossy_bytes(_scene(), np.random.default_rng(4), **kw)
+
+
 UNSUPPORTED = {
-    "tiff": lambda: _pil_bytes("RGB", "TIFF"),
-    "webp": lambda: _pil_bytes("RGB", "WEBP"),
+    "avif": lambda: _pil_bytes("RGB", "AVIF"),
+    "tiff_truncated": lambda: _tiff(compression=5)[:-30],
+    "tiff_big_endian_bigtiff": lambda: chip_smoke.tiff_bytes(
+        chip_smoke.tiff_image(_scene(), 2, 8), order=">", bigtiff=True),
+    "tiff_cmyk": lambda: _pil_bytes("CMYK", "TIFF"),
+    "tiff_jpeg_compressed": lambda: _pil_tiff_compressed("RGB", "jpeg"),
+    "tiff_ccitt_group4": lambda: _pil_tiff_compressed("1", "group4"),
+    "tiff_floating_point_predictor": lambda: _tiff(compression=8, predictor=3),
+    "tiff_lzw_code_past_table": lambda: chip_smoke.tiff_bytes((chip_smoke.tiff_image(
+        np.zeros((4, 4), np.int64), 1, 8, compression=5)[0], [chip_smoke._pack_msb(
+            np.array([256, 1, 300, 257]), np.array([9, 9, 9, 9]))])),
+    "webp_truncated": lambda: _webp_lossy()[:-10],
+    "webp_vp8_cut": lambda: chip_smoke.webp_vp8_cut(np.random.default_rng(1), _scene(40, 60)),
+    "webp_vp8l_version_bits": lambda: (lambda d: d[:24] + bytes([d[24] | 0x20]) + d[25:])(
+        chip_smoke.webp_lossless_bytes(_scene())),
+    "webp_alph_reserved_bits": lambda: (lambda d: d[:38] + b"\xc0" + d[39:])(
+        _webp_lossy(alpha=np.zeros((20, 28), np.int64))),
+    "tiff_old_style_lzw": lambda: chip_smoke.tiff_bytes((chip_smoke.tiff_image(
+        np.zeros((4, 4), np.int64), 1, 8, compression=5)[0], [b"\x00\x01" + bytes(10)])),
+    "tiff_without_a_width": lambda: chip_smoke.tiff_bytes((
+        {k: v for k, v in chip_smoke.tiff_image(_scene(), 2, 8)[0].items() if k != 256},
+        chip_smoke.tiff_image(_scene(), 2, 8)[1])),
+    "tiff_planar_16_bit_uncompressed": lambda: chip_smoke.tiff_bytes(chip_smoke.tiff_image(
+        np.full((6, 6, 3), 1000), 2, 16, planar=2)),
+    "tiff_palette_without_colormap": lambda: chip_smoke.tiff_bytes(chip_smoke.tiff_image(
+        np.zeros((4, 4), np.int64), 3, 8)),
+    "tiff_tile_past_256_mib": lambda: chip_smoke.tiff_bytes((chip_smoke.tiff_image(
+        np.zeros((4, 4, 3), np.int64), 2, 8, tile=(16, 16), tags={
+            322: (4, [1 << 16]), 323: (4, [1 << 16])})[0], [bytes(768)])),
+    "tiff_lzw_strip_short": lambda: chip_smoke.tiff_bytes((chip_smoke.tiff_image(
+        np.zeros((4, 4), np.int64), 1, 8, compression=5)[0], [chip_smoke._pack_msb(
+            np.array([256, 1, 2, 257]), np.array([9, 9, 9, 9]))])),
+    "webp_riff_size_below_eight": lambda: (lambda d: d[:4] + b"\x04\x00\x00\x00" + d[8:])(
+        _webp_lossy()),
+    "webp_vp8_partitions_past_data": lambda: chip_smoke.riff_webp(chip_smoke.riff_chunk(
+        b"VP8 ", (lambda f: f[:10 + ((f[0] | f[1] << 8 | f[2] << 16) >> 5)])(
+            chip_smoke.vp8_frame(_scene(), np.random.default_rng(2))))),
+    "webp_vp8l_stream_cut": lambda: chip_smoke.riff_webp(chip_smoke.riff_chunk(
+        b"VP8L", chip_smoke.webp_lossless_stream(chip_smoke.rgb_to_argb(_scene()))[:40])),
+    "webp_frame_past_its_canvas": lambda: chip_smoke.webp_animation_bytes(
+        [(chip_smoke.riff_chunk(b"VP8 ", chip_smoke.vp8_frame(_scene(), np.random.default_rng(
+            0))), 4, 0, 28, 20)], (28, 20)),
     "jpeg_no_eoi": lambda: _jpeg()[:-2],
     "jpeg_truncated_scan": lambda: _jpeg()[:-60],
     "jpeg_scan_cut_before_eoi": lambda: _jpeg()[:-60] + b"\xff\xd9",

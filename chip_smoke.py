@@ -95,11 +95,25 @@ with CUDA events. Phases:
    (4096 blocks of 256, g = 16), and ``hamming_near_mask`` at B's shape,
    [4096, 2] and [4096, 8], each timed beside its bound (tensor, compare
    and byte terms) and one ±1 fp16 ``torch.matmul`` of the same planes;
-11. the kernel table as one JSON line, launches summed over phases 4-10.
+11. live library — a location of 8192 sparse files in the system temp
+   dir: the scan chain with the identifier at 1024 files a step, paused
+   after its 2nd step, resumed live, paused after one more, the manager
+   shut down and a new one's ``cold_resume`` run to the end (every CAS ID
+   against an independent cuda call, the staging pool's leases 0 at each
+   pause, K1 launched once per page hashed, the two pages a pause dropped
+   included); ``Locations.watch_location`` with the inotify watcher while
+   two sub-directories take 300 new files, 50 same-size edits, 20 renames,
+   40 deletes and a new directory, until the light rescans bring the rows
+   back to the disk (K1 only inside ``light_scan_location``); and
+   ``walk_ephemeral(compute_cas_ids=True)`` over 64 PNG and JPEG images
+   against its plain version. The write actor's groups, tickets per group
+   and commits are printed for phase 7's scan and for this phase;
+12. the kernel table as one JSON line, launches summed over phases 4-11.
 
 Launch counts are reset just before each main path (phases 4 and 5, each
 ring run of phase 6, the scans of phases 7, 8 and 9, each validator job,
-each near-dup job and each search of phase 10) and read just after;
+each near-dup job and each search of phase 10, and phase 11's paused scan,
+its watcher's rescans and its browse) and read just after;
 launches made to compare or time a kernel are not counted. Every failure
 raises, so the exit code is 0 only if every phase passed. The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -998,9 +1012,11 @@ def phase_scan(workdir: Path, data_dir: str, phase4_ids: dict, phase4_planted: l
     # event pairs around each call on the job's stream.
     k1_spans: list = []
     copy_spans: list = []
+    actor_before = actor_stats(lib.db)
     with device_spans(blake3_cuda, "blake3_words", k1_spans), \
             device_spans(blake3_torch, "words_to_device", copy_spans):
         wall = run_scan(lib, location_id, counts, "scan", events)
+    actor = actor_stats(lib.db, actor_before)
     k1_s, copy_s = spans_s(k1_spans), spans_s(copy_spans)
     launches = counts["scan"]
     db = lib.db
@@ -1094,7 +1110,7 @@ def phase_scan(workdir: Path, data_dir: str, phase4_ids: dict, phase4_planted: l
          identifier_phase_s=ident["phase_s"], steps=len(steps), size_classes=classes,
          k1_device_s=k1_s, k1_share_of_wall=k1_s / wall, h2d_device_s=copy_s,
          h2d_share_of_wall=copy_s / wall,
-         launches=launches, pool=ident["pool"], objects=n_objects,
+         launches=launches, pool=ident["pool"], objects=n_objects, actor=actor,
          shared_op_rows=n_row_ops, shared_op_blob_ops=n_blob_ops,
          independent_cuda_s=independent_s, plain_sample=len(sample),
          plain_sample_s=plain_s, wal_bytes=os.path.getsize(db.path + "-wal")
@@ -3867,6 +3883,398 @@ def phase_near_dup_scale(bound: "Bound", n_b: int, counts: dict) -> dict:
     return out
 
 
+# -- phase 11: the live library -------------------------------------------------
+
+LIVE_FILES = 8192          # the location: 8 sub-directories of 1024 sparse files
+LIVE_PAGE = 1024           # the identifier's device_batch here: 8 steps
+LIVE_PAUSE_AFTER = (2, 3)  # pause after the 2nd step, and after the 1st of the resumed run
+LIVE_DEADLINE_S = 10.0     # the watcher's light rescans land within it
+LIVE_IMAGES = 64
+LIVE_BUDGET_S = 40.0
+
+
+@contextlib.contextmanager
+def after_each_step(hook):
+    """While open, ``hook(job)`` runs on the step's thread after each
+    FileIdentifierJob step, before the step returns to its worker."""
+    from spacedrive_tpu_torch.objects.identifier import FileIdentifierJob
+
+    step = FileIdentifierJob._step
+
+    def stepped(self, ctx, data):
+        out = step(self, ctx, data)
+        hook(self)
+        return out
+
+    FileIdentifierJob._step = stepped
+    try:
+        yield
+    finally:
+        FileIdentifierJob._step = step
+
+
+async def until(cond, deadline_s: float, what: str) -> None:
+    import asyncio
+
+    deadline = time.monotonic() + deadline_s
+    while not cond():
+        require(time.monotonic() < deadline, f"{what}: not within {deadline_s} s")
+        await asyncio.sleep(0.002)
+
+
+def independent_cas_ids(files: list) -> list:
+    """``cas_ids_for_files(backend="cuda")`` over (path, size) pairs in
+    pages of LIVE_PAGE on one pool, outside any job."""
+    from spacedrive_tpu_torch.ops import staging
+
+    pool = staging.cas_pool(LIVE_PAGE)
+    out = []
+    for k in range(0, len(files), LIVE_PAGE):
+        ids, errors = staging.cas_ids_for_files(files[k:k + LIVE_PAGE], "cuda", pool=pool)
+        require(not errors, f"independent cuda call errors {list(errors.values())[:2]}")
+        out.extend(ids[i] for i in range(len(files[k:k + LIVE_PAGE])))
+    require(pool.in_use == 0, "independent call leases out")
+    return out
+
+
+def live_rows(lib, root: Path) -> dict:
+    rows = lib.db.query("SELECT id, materialized_path, name, extension, is_dir, cas_id, "
+                        "object_id, date_modified, size_in_bytes_bytes FROM file_path "
+                        "ORDER BY id")
+    return {os.path.relpath(_rel_path(str(root), r), root): r for r in rows}
+
+
+def live_pause_resume(lib, location_id: int, root: Path, counts: dict) -> dict:
+    """The scan chain with the identifier at LIVE_PAGE files a step: paused
+    after its 2nd step, resumed live, paused after one more step, the
+    manager shut down, then a new manager's cold_resume to the end."""
+    import asyncio
+
+    from spacedrive_tpu_torch.jobs.manager import JobBuilder, JobManager
+    from spacedrive_tpu_torch.jobs.report import JobStatus
+    from spacedrive_tpu_torch.locations.indexer_job import IndexerJob
+    from spacedrive_tpu_torch.objects.identifier import FileIdentifierJob
+    from spacedrive_tpu_torch.ops import blake3_cuda, cas
+
+    steps, at_pause = [0], []
+
+    async def first_run():
+        loop = asyncio.get_running_loop()
+        jobs = JobManager()
+
+        def pause_job(job):
+            jid = next(j for j, w in jobs.running.items() if w.job is job)
+            jobs.pause(jid)
+
+        def hook(job):
+            steps[0] += 1
+            if steps[0] in LIVE_PAUSE_AFTER:
+                loop.call_soon_threadsafe(pause_job, job)
+
+        def identifier():
+            return next((j for j, w in jobs.running.items()
+                         if w.report.name == "file_identifier"), None)
+
+        with after_each_step(hook):
+            await JobBuilder(IndexerJob(location_id=location_id)).queue_next(
+                FileIdentifierJob(location_id=location_id, backend="cuda",
+                                  device_batch=LIVE_PAGE)).spawn(jobs, lib)
+            await until(lambda: identifier() is not None, 120, "the identifier's start")
+            jid = identifier()
+            for k in range(len(LIVE_PAUSE_AFTER)):
+                status = await jobs.wait(jid)
+                require(status == JobStatus.PAUSED, f"pause {k}: the identifier ended "
+                        f"{status.name}")
+                job = jobs._paused[jid].job
+                at_pause.append(dict(completed=jobs._paused[jid].report.completed_task_count,
+                                     holds_pool=job._pool is not None,
+                                     holds_thread=job._executor is not None))
+                if k + 1 < len(LIVE_PAUSE_AFTER):
+                    await jobs.resume(lib, jid)
+            t0 = time.perf_counter()
+            await jobs.shutdown()
+            return time.perf_counter() - t0
+
+    async def cold():
+        jobs = JobManager()
+        resumed = await jobs.cold_resume(lib)
+        require(len(resumed) == 1, f"cold_resume resumed {len(resumed)} jobs, not 1")
+        await jobs.wait_idle()
+
+    torch.cuda.synchronize()
+    blake3_cuda.reset_launches()
+    t0 = time.perf_counter()
+    shutdown_s = asyncio.run(first_run())
+    t1 = time.perf_counter()
+    asyncio.run(cold())
+    t2 = time.perf_counter()
+    counts["live_scan"] = launches = dict(blake3_cuda.launches)
+
+    reports = {rep.name: rep for rep in job_reports(lib)}
+    require(set(reports) == {"indexer", "file_identifier"}, f"jobs {sorted(reports)}")
+    for name, rep in reports.items():
+        require(rep.status == JobStatus.COMPLETED,
+                f"{name} ended {rep.status.name}: {rep.errors_text[:2]}")
+    meta = reports["file_identifier"].metadata
+    require([p["completed"] for p in at_pause] == list(LIVE_PAUSE_AFTER),
+            f"paused at steps {at_pause}, not {LIVE_PAUSE_AFTER}")
+    require(not any(p["holds_pool"] or p["holds_thread"] for p in at_pause),
+            f"a paused identifier holds its pool or its thread: {at_pause}")
+    require([p["in_use"] for p in meta["pauses"]] == [0] * len(LIVE_PAUSE_AFTER),
+            f"pool leases at the pauses: {meta['pauses']}")
+    rows = [r for r in live_rows(lib, root).items() if not r[1]["is_dir"]]
+    sizes = [int.from_bytes(r["size_in_bytes_bytes"], "big") for _, r in rows]
+    require(len(rows) == LIVE_FILES and min(sizes) > cas.MINIMUM_FILE_SIZE,
+            f"{len(rows)} files, smallest {min(sizes)} B")
+    pages = -(-LIVE_FILES // LIVE_PAGE)
+    # Each pause drops the page the hash-ahead worker hashed; the resumed
+    # run hashes it again. One size class: one K1 launch per page hashed.
+    require(meta["pages_hashed"] == pages + len(LIVE_PAUSE_AFTER),
+            f"{meta['pages_hashed']} pages hashed, not {pages} + {len(LIVE_PAUSE_AFTER)}")
+    require(launches[blake3_cuda.FAST] == meta["pages_hashed"],
+            f"K1 launched {launches[blake3_cuda.FAST]} times for {meta['pages_hashed']} pages")
+    require(launches[blake3_cuda.WINDOWED] == launches[blake3_cuda.FOLD] == 0,
+            f"the scan launched K2 or the fold: {launches}")
+    t3 = time.perf_counter()
+    want = independent_cas_ids([(str(root / rel), s) for (rel, _), s in zip(rows, sizes)])
+    independent_s = time.perf_counter() - t3
+    require([r["cas_id"] for _, r in rows] == want,
+            "resumed scan CAS IDs != the independent cuda call")
+    n_objects = lib.db.query_one("SELECT COUNT(*) AS n FROM object")["n"]
+    require(n_objects == len(set(want)), f"{n_objects} objects != {len(set(want))} CAS IDs")
+    return dict(first_run_s=t1 - t0, shutdown_s=shutdown_s, cold_resume_s=t2 - t1,
+                scan_s=t2 - t0, pages=pages, pages_hashed=meta["pages_hashed"],
+                paused_after_steps=[p["completed"] for p in at_pause],
+                pool_in_use_at_pauses=[p["in_use"] for p in meta["pauses"]],
+                launches=launches, independent_cuda_s=independent_s)
+
+
+def _live_write(path: Path, marker: str, size: int = SCAN_FILE_BYTES) -> None:
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    try:
+        os.ftruncate(fd, size)
+        os.pwrite(fd, marker.encode(), 0)
+    finally:
+        os.close(fd)
+
+
+def live_changes(root: Path) -> dict:
+    """In two sub-directories: 300 new files, 50 edits (same size, new
+    bytes, mtime + 100 s), 20 renames, 40 deletes and one new directory
+    with two files. New files are written before any delete, so none takes
+    a deleted file's inode."""
+    dirs = [root / "scan-000", root / "scan-001"]
+    new, edited, renamed, deleted = [], {}, {}, []
+    for d, path in enumerate(dirs):
+        for k in range(150):
+            new.append(path / f"live-{k:03d}")
+            _live_write(new[-1], f"live new {d}-{k:06d}")
+    added = dirs[0] / "added-dir"
+    added.mkdir()
+    for k in range(2):
+        new.append(added / f"inner-{k}")
+        _live_write(new[-1], f"live inner {k:06d}")
+    for d, path in enumerate(dirs):
+        olds = sorted(p for p in path.iterdir() if p.name.startswith("f"))
+        for p in olds[:25]:
+            st = os.stat(p)
+            with open(p, "r+b") as f:
+                f.write(f"live edit {d}-{p.name}".encode())
+            os.utime(p, (st.st_atime, st.st_mtime + 100))
+            edited[p] = os.stat(p).st_mtime
+        for p in olds[25:35]:
+            renamed[p] = p.with_name(f"renamed-{p.name}")
+            os.rename(p, renamed[p])
+        for p in olds[35:55]:
+            deleted.append(p)
+            os.remove(p)
+    return dict(new=new, edited=edited, renamed=renamed, deleted=deleted, added_dir=added)
+
+
+def live_watch(lib, location_id: int, root: Path, counts: dict) -> dict:
+    """watch_location (inotify), the changes of live_changes, and the light
+    rescans that bring the location's rows back to the disk."""
+    import asyncio
+
+    from spacedrive_tpu_torch.locations import shallow, watcher
+    from spacedrive_tpu_torch.ops import blake3_cuda
+
+    before = live_rows(lib, root)
+    rescans = []
+    scan = shallow.light_scan_location
+
+    def recorded(library, loc, sub_path=None, backend="cuda"):
+        k0, t0 = blake3_cuda.launches[blake3_cuda.FAST], time.perf_counter()
+        out = scan(library, loc, sub_path, backend)
+        rescans.append(dict(sub_path=sub_path, s=time.perf_counter() - t0,
+                            k1=blake3_cuda.launches[blake3_cuda.FAST] - k0,
+                            **{k: v for k, v in out.items() if k != "errors"},
+                            errors=len(out["errors"])))
+        return out
+
+    def on_disk() -> set:
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, fs in os.walk(root) for f in fs}
+
+    async def main():
+        events = []
+        live = watcher.Locations(on_event=events.append, owner="chip-smoke-live")
+        try:
+            require(live.watch_location(lib, location_id), "watch_location refused")
+            w = live.watchers[(lib.id, location_id)]
+            require(isinstance(w, watcher.LocationWatcher),
+                    f"the {type(w).__name__} ran, not the inotify watcher")
+            await asyncio.sleep(0.2)
+            torch.cuda.synchronize()
+            blake3_cuda.reset_launches()
+            t0 = time.perf_counter()
+            made = live_changes(root)
+            changes_s = time.perf_counter() - t0
+
+            def caught_up() -> bool:
+                if not live.idle():
+                    return False
+                rows = live_rows(lib, root)
+                files = {rel for rel, r in rows.items() if not r["is_dir"]}
+                return (files == on_disk()
+                        and all(r["object_id"] is not None for rel, r in rows.items()
+                                if not r["is_dir"])
+                        and all(abs(rows[os.path.relpath(p, root)]["date_modified"] - m) < 1e-3
+                                for p, m in made["edited"].items()))
+
+            deadline = time.monotonic() + LIVE_DEADLINE_S
+            while not caught_up():
+                require(time.monotonic() < deadline,
+                        f"the light rescans did not catch up within {LIVE_DEADLINE_S} s "
+                        f"({len(rescans)} rescans, events {events[-3:]})")
+                await asyncio.sleep(0.05)
+            caught_s = time.perf_counter() - t0
+            launches = dict(blake3_cuda.launches)
+            errors = [e for e in events if e["type"] == "WatcherError"]
+            require(not errors, f"watcher errors: {errors[:3]}")
+            return made, changes_s, caught_s, launches, type(w).__name__, len(w._path_to_wd)
+        finally:
+            await live.close()
+
+    shallow.light_scan_location = recorded
+    try:
+        made, changes_s, caught_s, launches, kind, watches = asyncio.run(main())
+    finally:
+        shallow.light_scan_location = scan
+    counts["live_watch"] = launches
+    require(launches[blake3_cuda.FAST] > 0
+            and launches[blake3_cuda.FAST] == sum(r["k1"] for r in rescans),
+            f"K1 launched {launches} in all, {sum(r['k1'] for r in rescans)} in the rescans")
+    require(launches[blake3_cuda.WINDOWED] == launches[blake3_cuda.FOLD] == 0,
+            f"the rescans launched K2 or the fold: {launches}")
+    require(all(r["errors"] == 0 for r in rescans), f"rescan errors: {rescans}")
+    after = live_rows(lib, root)
+    require(os.path.relpath(made["added_dir"], root) in after, "the new directory has no row")
+    fresh = made["new"] + sorted(made["edited"])
+    files = [(str(p), os.path.getsize(p)) for p in fresh]
+    want = independent_cas_ids(files)
+    got = [after[os.path.relpath(p, root)]["cas_id"] for p in fresh]
+    require(got == want, "new and edited files' CAS IDs != the independent cuda call")
+    for old, new in made["renamed"].items():
+        a, b = before[os.path.relpath(old, root)], after[os.path.relpath(new, root)]
+        require((a["id"], a["cas_id"], a["object_id"]) == (b["id"], b["cas_id"], b["object_id"]),
+                f"the renamed {old.name} lost its row or its object")
+    return dict(watcher=kind, watches=watches,
+                changes=dict(new=len(made["new"]), edited=len(made["edited"]),
+                             renamed=len(made["renamed"]), deleted=len(made["deleted"]),
+                             new_dirs=1),
+                changes_write_s=changes_s, caught_up_s=caught_s, rescans=len(rescans),
+                rescan_s=sum(r["s"] for r in rescans), rescan_list=rescans,
+                launches=launches)
+
+
+def live_browse(workdir: Path, counts: dict) -> dict:
+    """walk_ephemeral(compute_cas_ids=True) over a directory outside any
+    location: LIVE_IMAGES PNG and JPEG images of the harness's writers and a
+    few other files, against the plain version."""
+    from spacedrive_tpu_torch.locations.non_indexed import walk_ephemeral
+    from spacedrive_tpu_torch.ops import blake3_cuda, cas
+
+    root = workdir / "browse"
+    (root / "sub").mkdir(parents=True)
+    rng = np.random.default_rng(110)
+    kinds = [k for k in IMAGE_KINDS if k.startswith(("png", "jpeg"))]
+    t0 = time.perf_counter()
+    for i in range(LIVE_IMAGES):
+        h, w = (int(v) for v in rng.integers(48, 257, 2))
+        rgb = np.clip(image_scene(rng, h, w), 0, 255).astype(np.uint8)
+        data, ext = encode_image(rng, rgb, kinds[i % len(kinds)])
+        (root / f"img{i:02d}.{ext}").write_bytes(data)
+    (root / "notes.txt").write_bytes(b"not an image\n" * 40)
+    (root / "blob.bin").write_bytes(rng.integers(0, 256, 200_000, np.uint8).tobytes())
+    (root / "empty.png").write_bytes(b"")
+    (root / ".hidden.png").write_bytes(b"a hidden file")
+    (root / "sub" / "inner.png").write_bytes(b"inside a sub-directory")
+    write_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    blake3_cuda.reset_launches()
+    t0 = time.perf_counter()
+    got = walk_ephemeral(str(root), compute_cas_ids=True)
+    wall = time.perf_counter() - t0
+    counts["live_browse"] = launches = dict(blake3_cuda.launches)
+    t0 = time.perf_counter()
+    plain = walk_ephemeral(str(root), compute_cas_ids=True, device="cpu")
+    plain_s = time.perf_counter() - t0
+    require(got == plain, "walk_ephemeral on the card != its plain version")
+    images = [e for e in got if e["cas_id"]]
+    require(len(images) == LIVE_IMAGES and len(got) == LIVE_IMAGES + 4,
+            f"{len(images)} CAS IDs in {len(got)} entries")
+    sizes = [e["size_in_bytes"] for e in images]
+    classes = any(s > cas.MINIMUM_FILE_SIZE for s in sizes) + any(
+        s <= cas.MINIMUM_FILE_SIZE for s in sizes)
+    require(launches[blake3_cuda.FAST] == classes,
+            f"walk_ephemeral launched {launches}, not one K1 per size class ({classes})")
+    return dict(images=len(images), entries=len(got), write_s=write_s, wall_s=wall,
+                plain_s=plain_s, size_classes=classes, launches=launches)
+
+
+def actor_stats(db, before: Optional[dict] = None) -> dict:
+    """The write actor's groups, tickets and tickets per group, and the
+    database's commits, since `before` (another actor_stats) if given."""
+    now = dict(groups=db._actor.groups, tickets=db._actor.batches, commits=db._commits)
+    if before is not None:
+        now = {k: v - before[k] for k, v in now.items() if k in before}
+    now["tickets_per_group"] = now["tickets"] / now["groups"] if now["groups"] else 0.0
+    return now
+
+
+def phase_live(counts: dict) -> dict:
+    """Phase 11: the live library on the card."""
+    from spacedrive_tpu_torch.library import Libraries
+    from spacedrive_tpu_torch.locations import manager as locations
+
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-live-") as tmp:
+        workdir = Path(tmp)
+        root = workdir / "location"
+        root.mkdir()
+        t0 = time.perf_counter()
+        extend_scan_corpus(root, LIVE_FILES)
+        corpus_s = time.perf_counter() - t0
+        lib = Libraries(str(workdir / "data")).create("chip-smoke-live")
+        try:
+            location_id = locations.create_location(lib, str(root))
+            scan = live_pause_resume(lib, location_id, root, counts)
+            watch = live_watch(lib, location_id, root, counts)
+            browse = live_browse(workdir, counts)
+            actor = actor_stats(lib.db)
+        finally:
+            lib.db.close()
+    wall = time.perf_counter() - t_all
+    out = dict(wall_s=wall, parts=dict(corpus_write_s=corpus_s, scan_s=scan["scan_s"],
+                                       watch_s=watch["caught_up_s"], browse_s=browse["wall_s"]),
+               files=LIVE_FILES, scan=scan, watch=watch, browse=browse, actor=actor,
+               launches={k: counts[k] for k in ("live_scan", "live_watch", "live_browse")})
+    emit("live", **out)
+    require(wall <= LIVE_BUDGET_S, f"phase 11 took {wall:.1f} s, past its {LIVE_BUDGET_S} s")
+    return out
+
+
 REPLACES = {
     "blake3_chunk_fast": "spacedrive_tpu/ops/blake3_pallas.py:121",
     "blake3_chunk_fast_cvs": "spacedrive_tpu/ops/blake3_pallas.py:121",
@@ -3929,6 +4337,7 @@ def main() -> int:
     scale = phase_near_dup_scale(bound, near_dup["B"]["objects_hashed"], counts)
     stats["hamming_near_mask"] = scale["mask"][f"{near_dup['B']['objects_hashed']}x2"]
     stats["hamming_near_counts"] = scale["counts"]["sweep"]
+    phase_live(counts)
 
     kernels = []
     for name, replaces in REPLACES.items():

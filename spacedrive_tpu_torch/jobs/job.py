@@ -6,9 +6,12 @@ semantics): ``init`` produces work steps, ``execute_step`` runs one step
 is msgpack-serializable through the port's codec, byte-equal to the JAX
 package's, so a job row reads the same to both packages.
 
-The port keeps its own ``JOB_REGISTRY``. Its jobs carry the JAX package's
-``NAME``s (``indexer``, ``file_identifier``, ``object_validator``); the two
-registries never meet.
+The port keeps its own ``JOB_REGISTRY``, what a resume dispatches on. Its
+jobs carry the JAX package's ``NAME``s (``indexer``, ``file_identifier``,
+``object_validator``, ``near_dup_detector``); the two registries never
+meet. ``JobManager`` imports the port's four job classes before it
+resumes anything, so a fresh process can ``cold_resume`` a library's job
+table.
 """
 
 from __future__ import annotations
@@ -60,9 +63,20 @@ class StatefulJob:
 
     NAME: str = ""
     IS_BATCHED: bool = False  # task_count counts batches, not items
+    # Init-arg names that never reach the DB (secrets): they serialize as
+    # None, and a cold-resumed job gets None back.
+    TRANSIENT_ARGS: frozenset = frozenset()
 
     def __init__(self, **init_args: Any):
         self.init_args = init_args
+
+    def persistable_init_args(self) -> Dict[str, Any]:
+        """init_args with TRANSIENT_ARGS redacted to None: the only form
+        written to the job table."""
+        if not self.TRANSIENT_ARGS:
+            return self.init_args
+        return {k: (None if k in self.TRANSIENT_ARGS else v)
+                for k, v in self.init_args.items()}
 
     def hash(self) -> str:
         """Dedup hash over (NAME, init args), insensitive to kwarg order."""
@@ -84,8 +98,17 @@ class StatefulJob:
 
     async def cleanup(self, ctx: "JobContext", data: Optional[Dict[str, Any]]) -> None:
         """Best-effort teardown when the job ends WITHOUT finalize (a
-        job-level failure). Must be idempotent; the worker swallows
-        exceptions."""
+        job-level failure or a cancel). Must be idempotent; the worker
+        swallows exceptions."""
+        return None
+
+    async def suspend(self, ctx: "JobContext", data: Dict[str, Any]) -> None:
+        """Let go of what the run holds outside its state (threads, pinned
+        pages) before a pause or a shutdown persists that state. The job
+        may stay paused for hours, and a resume (live or cold) runs the
+        next step without ``init``, so a job rebuilds what it needs there.
+        It may record what it let go in `data`, which is persisted after
+        this returns."""
         return None
 
     async def finalize(self, ctx: "JobContext", data: Dict[str, Any],
@@ -162,3 +185,8 @@ def register_job(cls: Type[StatefulJob]) -> Type[StatefulJob]:
         raise ValueError(f"job class {cls.__name__} needs a NAME of its own")
     JOB_REGISTRY[cls.NAME] = cls
     return cls
+
+
+def job_from_state(name: str, state: JobState) -> StatefulJob:
+    """The job a persisted state blob resumes."""
+    return JOB_REGISTRY[name](**state.init_args)

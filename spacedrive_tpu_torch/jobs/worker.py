@@ -1,14 +1,21 @@
 """The job run loop: one asyncio task per running job.
 
-Port of ``spacedrive_tpu/jobs/worker.py`` without its command inbox:
-``init``, then the steps in order (a step may append more), a crash
-checkpoint of the resumable state every ``CHECKPOINT_INTERVAL_S``,
-``finalize``, a passive WAL fold, and every status transition persisted.
-A step's exception is a non-fatal error in the report; a ``JobError`` or
-a failure outside a step fails the job after its ``cleanup``. Progress
-events are throttled to ``PROGRESS_THROTTLE_S`` and carry an ETA
-(worker.rs:228-292). Pause, resume, cancel and cold resume wait in
-ROADMAP.
+Port of ``spacedrive_tpu/jobs/worker.py``: ``init`` (skipped when the job
+resumes from a state blob with work in it), then the steps in order (a
+step may append more), a crash checkpoint of the resumable state every
+``CHECKPOINT_INTERVAL_S``, ``finalize``, a passive WAL fold, and every
+status transition persisted. A step's exception is a non-fatal error in
+the report; a ``JobError`` or a failure outside a step fails the job after
+its ``cleanup``. Progress events are throttled to ``PROGRESS_THROTTLE_S``
+and carry an ETA (worker.rs:228-292).
+
+The command inbox (``command``: PAUSE, RESUME, CANCEL, SHUTDOWN) is
+drained between steps, the latest command winning. PAUSE and SHUTDOWN let
+the job ``suspend`` and persist the remaining steps as a PAUSED report;
+CANCEL runs ``cleanup`` and ends CANCELED, and is honoured after the last
+step too, before ``finalize``. The JAX package also cancels a step in
+flight; here a step always runs to its end (the identifier's commit runs
+in a thread that a cancel could not stop), so a command waits for it.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import asyncio
 import time
 import traceback
 from collections import deque
-from typing import Any, Callable, List
+from typing import Any, Callable, Deque, List, Optional
 
 from .job import EarlyFinish, JobContext, JobError, JobState, StatefulJob, StepOutcome
 from .report import JobReport, JobStatus
@@ -27,19 +34,42 @@ PROGRESS_THROTTLE_S = 0.5  # worker.rs:273
 CHECKPOINT_INTERVAL_S = 3.0
 
 
+class WorkerCommand:
+    PAUSE = "pause"
+    RESUME = "resume"
+    CANCEL = "cancel"
+    SHUTDOWN = "shutdown"
+
+
 class Worker:
-    """Drives one job to completion or failure."""
+    """Drives one job to completion, pause, cancellation or failure.
+    `resume_state` is the state blob the job was admitted with: the
+    pre-init blob of a fresh job (its chain), or the state of a paused or
+    interrupted run."""
 
     def __init__(self, job: StatefulJob, report: JobReport, library: Any,
-                 on_event: Callable[[dict], None], next_chain: List[Any]):
+                 on_event: Callable[[dict], None],
+                 resume_state: Optional[JobState] = None):
         self.job = job
         self.report = report
         self.library = library
         self.on_event = on_event
-        self.next_chain = next_chain
+        self.resume_state = resume_state
+        self.commands: Deque[str] = deque()
         self._last_progress_emit = 0.0
         self._last_checkpoint = time.monotonic()
         self._started_at = 0.0
+
+    def command(self, cmd: str) -> None:
+        self.commands.append(cmd)
+
+    def _drain_commands(self) -> Optional[str]:
+        """The latest pending command (a RESUME after a PAUSE not yet acted
+        on cancels it)."""
+        cmd = None
+        while self.commands:
+            cmd = self.commands.popleft()
+        return cmd
 
     def _progress(self, task_count=None, completed=None, message=None) -> None:
         r = self.report
@@ -64,6 +94,8 @@ class Worker:
     async def run(self) -> JobStatus:
         try:
             status = await self._run_inner()
+        except asyncio.CancelledError:
+            status = await self._persist_paused_or_fail("worker task cancelled")
         except Exception as e:  # noqa: BLE001 (a job-level failure)
             await self._cleanup_quietly(None)
             self.report.status = JobStatus.FAILED
@@ -85,22 +117,35 @@ class Worker:
         r.date_started = int(time.time())
         await asyncio.to_thread(r.update, self.library.db)
 
-        try:
-            data, steps = await self.job.init(ctx)
-        except EarlyFinish:
-            r.status = JobStatus.COMPLETED
-            r.data = None  # clear the at-ingest state blob
-            r.date_completed = int(time.time())
-            await asyncio.to_thread(r.update, self.library.db)
-            return JobStatus.COMPLETED
-        state = JobState(
-            init_args=self.job.init_args, data=data, steps=deque(steps),
-            step_number=0, run_metadata={}, next_chain=self.next_chain)
+        errors: List[str] = []
+        resume = self.resume_state
+        if resume is not None and (resume.steps or resume.step_number):
+            state = resume
+            errors = list(r.errors_text)
+        else:
+            # A fresh run, or a job resumed before its init ever ran (its
+            # blob was written at ingest).
+            try:
+                data, steps = await self.job.init(ctx)
+            except EarlyFinish:
+                r.status = JobStatus.COMPLETED
+                r.data = None  # clear the at-ingest state blob
+                r.date_completed = int(time.time())
+                await asyncio.to_thread(r.update, self.library.db)
+                return JobStatus.COMPLETED
+            state = JobState(
+                init_args=self.job.persistable_init_args(), data=data,
+                steps=deque(steps), step_number=0, run_metadata={},
+                next_chain=resume.next_chain if resume is not None else [])
         if not r.task_count:
             r.task_count = len(state.steps)
 
-        errors: List[str] = []
         while state.steps:
+            cmd = self._drain_commands()
+            if cmd == WorkerCommand.CANCEL:
+                return await self._finish_cancel(ctx, state)
+            if cmd in (WorkerCommand.PAUSE, WorkerCommand.SHUTDOWN):
+                return await self._persist_paused(ctx, state, errors)
             try:
                 outcome = await self.job.execute_step(ctx, state.data, state.steps[0],
                                                       state.step_number)
@@ -127,6 +172,11 @@ class Worker:
                 except Exception:  # noqa: BLE001 (retried next interval)
                     pass
 
+        # A CANCEL that came with the last step is still honoured: finalize
+        # has not run. A PAUSE of a finished job is moot.
+        if self._drain_commands() == WorkerCommand.CANCEL:
+            return await self._finish_cancel(ctx, state)
+
         meta = await self.job.finalize(ctx, state.data, state.run_metadata)
         # Bulk jobs run with wal_autocheckpoint off: fold the WAL back now.
         await asyncio.to_thread(self.library.db.checkpoint_passive)
@@ -146,6 +196,33 @@ class Worker:
         self.report.errors_text = list(errors)
         self.report.completed_task_count = state.step_number
         self.report.update(self.library.db)
+
+    async def _persist_paused(self, ctx: JobContext, state: JobState,
+                              errors: List[str]) -> JobStatus:
+        await self.job.suspend(ctx, state.data)
+        self.report.status = JobStatus.PAUSED
+        await asyncio.to_thread(self._persist_state, state, errors)
+        return JobStatus.PAUSED
+
+    async def _persist_paused_or_fail(self, why: str) -> JobStatus:
+        """The worker's task was cancelled (process shutdown) with no state
+        in hand: paused when a checkpoint was written, else failed."""
+        if self.report.data is not None:
+            self.report.status = JobStatus.PAUSED
+        else:
+            self.report.status = JobStatus.FAILED
+            self.report.errors_text.append(why)
+        await asyncio.to_thread(self.report.update, self.library.db)
+        return self.report.status
+
+    async def _finish_cancel(self, ctx: JobContext, state: JobState) -> JobStatus:
+        await self._cleanup_quietly(state.data)
+        self.report.status = JobStatus.CANCELED
+        self.report.data = None
+        self.report.completed_task_count = state.step_number
+        self.report.date_completed = int(time.time())
+        await asyncio.to_thread(self.report.update, self.library.db)
+        return JobStatus.CANCELED
 
     async def _cleanup_quietly(self, data) -> None:
         """Run the job's no-finalize teardown; never raises."""

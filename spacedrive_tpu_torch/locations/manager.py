@@ -4,7 +4,10 @@ Port of ``spacedrive_tpu/locations/manager.py`` (upstream
 core/src/location/mod.rs): ``create_location`` writes the location row
 through sync and attaches indexer rules; ``scan_location`` chains
 ``IndexerJob`` → ``FileIdentifierJob`` through the job builder
-(mod.rs:417-445); ``scan_location_sub_path`` rescans one directory.
+(mod.rs:417-445); ``scan_location_sub_path`` rescans one directory and
+what lies under it; ``light_scan_location`` (``locations/shallow.py``)
+rescans one directory inline, the watcher's path. The chain's jobs pause,
+resume, cancel and cold-resume through ``jobs/manager.py``.
 
 The identifier's ``backend`` defaults to ``"cuda"`` (the hand-written
 BLAKE3 kernel on the card) and the chain is refused at once where CUDA is
@@ -23,6 +26,10 @@ from ..jobs.manager import JobBuilder, JobManager
 from ..objects.identifier import FileIdentifierJob
 from ..store import uuid_bytes
 from .indexer_job import IndexerJob
+from .shallow import light_scan_location
+
+__all__ = ["LocationError", "create_location", "light_scan_location", "scan_location",
+           "scan_location_sub_path"]
 
 
 class LocationError(Exception):

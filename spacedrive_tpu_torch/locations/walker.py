@@ -161,6 +161,28 @@ class Walker:
             sizes[entry.maybe_parent] = size
         return WalkResult(walked, to_update, to_walk, to_remove, errors, sizes)
 
+    def walk_single_dir(self, root: Optional[str] = None,
+                        add_root: bool = False) -> WalkResult:
+        """Shallow, non-recursive walk of one directory (walk.rs:262-330),
+        the light rescan's walk. With `add_root` the directory itself is
+        indexed too."""
+        root = os.path.normpath(root or self.location_path)
+        indexed: Dict[IsolatedPath, WalkedEntry] = {}
+        errors: List[str] = []
+        to_remove: List[dict] = []
+        if add_root:
+            try:
+                st = os.stat(root)
+                iso = self._iso(root, True)
+                indexed[iso] = WalkedEntry(uuid4_bytes(), iso,
+                                           FilePathMetadata.from_stat(root, st))
+            except OSError as e:
+                errors.append(f"{root}: {e}")
+        size = self._walk_one(ToWalkEntry(root), indexed, None, to_remove, errors,
+                              root=root)
+        walked, to_update = self._filter_existing(indexed)
+        return WalkResult(walked, to_update, deque(), to_remove, errors, {root: size})
+
     # -- core per-directory pass (inner_walk_single_dir, walk.rs:430-690) --
 
     def _walk_one(

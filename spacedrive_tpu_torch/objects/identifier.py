@@ -27,6 +27,13 @@ staged and hashed in a worker thread while page k commits), the
 whole-library cas map, the index drop and rebuild for big scans, and the
 per-phase seconds in ``data["phase_s"]``. A thread that hashes on the card
 enters the job's device and stream itself.
+
+The job pauses, resumes and cold-resumes from its cursor. ``suspend``
+(a pause or a shutdown) waits out the hash-ahead worker, drops the page it
+hashed, stops the thread and lets the pool go, so a paused job holds no
+pinned page; the next step builds the pool again and hashes that page
+anew. ``data["pages_hashed"]`` counts every page hashed, the re-hashed
+ones included, and ``data["pauses"]`` the pool's leases at each pause.
 """
 
 from __future__ import annotations
@@ -246,6 +253,7 @@ class FileIdentifierJob(StatefulJob):
         self._prefetch = None
         self._count_lock = threading.Lock()
         self._leases_after_hash = 0
+        self._pages_hashed = 0  # since the last fold into data
 
     @property
     def chunk_size(self) -> int:
@@ -288,16 +296,28 @@ class FileIdentifierJob(StatefulJob):
             "phase_s": {},
         }
         if self.backend == "cuda":
-            # One pool for the whole run, sized for the largest page.
-            with torch.cuda.device(self._device):
-                self._pool = staging.cas_pool(min(chunk, count), self._device)
-                self._stream = torch.cuda.Stream(self._device)
+            self._ensure_pool(data)
             data["pool"] = {"pages": self._pool.pages,
                             "pinned_bytes": self._pool.pinned_bytes,
                             "alloc_s": self._pool.alloc_s}
         steps = [{"chunk": i} for i in range(-(-count // chunk))]
         ctx.progress(task_count=len(steps), message=f"identifying {count} orphan paths")
         return data, steps
+
+    def _ensure_pool(self, data: Dict[str, Any]) -> None:
+        """One pool for the run, sized for the largest page: built in init
+        and again by the first step after a resume, which skips init."""
+        if self.backend != "cuda" or self._pool is not None:
+            return
+        with torch.cuda.device(self._device):
+            self._pool = staging.cas_pool(min(data["chunk_size"], data["total_orphans"]),
+                                          self._device)
+            self._stream = torch.cuda.Stream(self._device)
+
+    def _fold_counts(self, data: Dict[str, Any]) -> None:
+        with self._count_lock:
+            data["pages_hashed"] = data.get("pages_hashed", 0) + self._pages_hashed
+            self._pages_hashed = 0
 
     async def execute_step(self, ctx, data, step, step_number):
         return await asyncio.to_thread(self._step, ctx, data)
@@ -309,10 +329,14 @@ class FileIdentifierJob(StatefulJob):
         thread enters the job's device and stream, stages into the job's
         pool, and every lease is back when the call returns."""
         if self.backend != "cuda":
-            return staging.cas_ids_for_files(files, backend=self.backend)
+            out = staging.cas_ids_for_files(files, backend=self.backend)
+            with self._count_lock:
+                self._pages_hashed += 1
+            return out
         with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
             out = staging.cas_ids_for_files(files, backend="cuda", pool=self._pool)
         with self._count_lock:
+            self._pages_hashed += 1
             self._leases_after_hash = max(self._leases_after_hash, self._pool.in_use)
         return out
 
@@ -405,6 +429,7 @@ class FileIdentifierJob(StatefulJob):
     def _step(self, ctx: JobContext, data: Dict[str, Any]) -> StepOutcome:
         tf = time.perf_counter()
         timings = data.setdefault("phase_s", {})
+        self._ensure_pool(data)
         # Phase 1: the page, outside any transaction. A page the worker did
         # not hash (job start, or the redo of a failed step) is hashed here
         # before the next page's worker starts, so two hashes never run at
@@ -438,6 +463,7 @@ class FileIdentifierJob(StatefulJob):
         if batch.n_ops:
             ctx.library.sync._notify_created()
         data["cursor"] = cursor
+        self._fold_counts(data)
         timings["step_total"] = timings.get("step_total", 0.0) + time.perf_counter() - tf
         data["linked"] += linked
         data["created"] += created
@@ -477,8 +503,21 @@ class FileIdentifierJob(StatefulJob):
             conn.execute("CREATE INDEX IF NOT EXISTS idx_file_path_object_id "
                          "ON file_path (object_id)")
 
+    async def suspend(self, ctx, data):
+        """A pause or a shutdown: wait out the prefetch (its page is hashed
+        again after the resume), stop the worker thread and let the pool
+        go. The pool's leases at that point land in ``data["pauses"]``.
+        The cas map is dropped too: other writers may add objects while
+        the job is paused."""
+        pool = self._pool
+        await asyncio.to_thread(self._release)
+        self._fold_counts(data)
+        self._cas_map = None
+        data.setdefault("pauses", []).append(
+            {"in_use": pool.in_use if pool is not None else 0, "cursor": data["cursor"]})
+
     async def cleanup(self, ctx, data):
-        """Failure path: finalize never runs, so release the pool and
+        """Failure or cancel: finalize never runs, so release the pool and
         restore the indexes here."""
         await asyncio.to_thread(self._release)
         await asyncio.to_thread(self._restore_indexes, ctx.db)
@@ -486,6 +525,10 @@ class FileIdentifierJob(StatefulJob):
     async def finalize(self, ctx, data, metadata):
         pool = self._pool
         await asyncio.to_thread(self._release)
+        self._fold_counts(data)
+        metadata["pages_hashed"] = data["pages_hashed"]
+        if data.get("pauses"):
+            metadata["pauses"] = data["pauses"]
         if data.get("rebuild_indexes"):
             t0 = time.perf_counter()
             await asyncio.to_thread(self._restore_indexes, ctx.db)
@@ -494,7 +537,7 @@ class FileIdentifierJob(StatefulJob):
         if phase:
             metadata["phase_s"] = dict(sorted(phase.items()))
             metadata["chunk_size"] = data.get("chunk_size")
-        if pool is not None:
+        if "pool" in data:
             metadata["pool"] = {**data["pool"], "in_use_after_hash": self._leases_after_hash,
-                                "in_use_at_end": pool.in_use}
+                                "in_use_at_end": pool.in_use if pool is not None else 0}
         return metadata

@@ -15,12 +15,15 @@ every 128 commits once the WAL passes 256 MiB, the schema bootstrap
 older libraries (additive columns, dropping op-log indexes an older schema
 built eagerly) are left to it: the port opens the schema it creates.
 
-``write_tx`` takes the shape the JAX package runs with its group-commit
-actor off (``SDTPU_STORE_ACTOR=off``): one ``BEGIN IMMEDIATE`` … ``COMMIT``
-per batch, and a nested call rides the enclosing transaction under a
-savepoint. The commits and their guarantees are the same; batches of
-concurrent writers are not coalesced. Reads on a thread with no open
-transaction use that thread's own connection (the JAX package lends a
+``write_tx`` is the group-committed write path of the JAX package
+(``store/actor.py``): a batch body runs in its own savepoint of the write
+actor's transaction, coalesced with concurrent writers' batches, and
+returns once that transaction has committed. A nested call, or a call
+inside an open ``tx()`` on the same thread, rides that transaction under a
+fresh savepoint. ``SDTPU_STORE_ACTOR=off`` gives one ``BEGIN IMMEDIATE``
+… ``COMMIT`` per batch instead. Reads on a thread with an open
+transaction (a granted ``write_tx`` included) see its uncommitted writes;
+other reads use the thread's own connection (the JAX package lends a
 pooled read-only one).
 """
 
@@ -31,9 +34,12 @@ import sqlite3
 import threading
 import time
 import uuid
+from concurrent.futures import Future
 from contextlib import contextmanager
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
+from .. import flags
+from . import actor as actor_mod
 from . import models, statements
 from ..sync.crdt import uuid4_bytes
 
@@ -70,6 +76,7 @@ class Database:
         self._all_conns: List[sqlite3.Connection] = []
         self._closed = False
         self._commits = 0
+        self._actor = actor_mod.WriteActor(self)
         conn = self._conn()
         with self._write_lock:
             ddl = models.all_ddl()
@@ -105,7 +112,10 @@ class Database:
         return conn
 
     def close(self) -> None:
-        """Close every thread's connection; later use raises."""
+        """Close every thread's connection; later use raises. The write
+        actor stops first: it may hold the write lock for a group, and it
+        fails whatever is still queued."""
+        self._actor.stop()
         with self._write_lock:
             with self._conns_lock:
                 self._closed = True
@@ -215,22 +225,101 @@ class Database:
                 time.sleep(delay)
 
     @contextmanager
+    def _savepoint(self, conn: sqlite3.Connection):
+        """One batch's bracket inside an enclosing transaction; same-name
+        savepoints stack, so nested batches compose."""
+        conn.execute("SAVEPOINT sdtpu_wtx")
+        try:
+            yield
+        except BaseException:
+            conn.execute("ROLLBACK TO sdtpu_wtx")
+            conn.execute("RELEASE sdtpu_wtx")
+            raise
+        conn.execute("RELEASE sdtpu_wtx")
+
+    @contextmanager
     def write_tx(self):
-        """One write batch: its own ``tx()``, or a savepoint of the
-        transaction already open on this thread."""
+        """One write batch, group-committed by the write actor.
+
+        The body runs on this thread in its own savepoint of the actor's
+        transaction, over the actor's connection, and the block exits once
+        that transaction has committed. A body that raises rolls back only
+        its savepoint; a failed group COMMIT raises here. A nested call,
+        or one inside an open ``tx()`` on this thread, rides that
+        transaction under a fresh savepoint. The body must not reach
+        ``checkpoint()``, ``checkpoint_passive()`` or ``tx()``: the actor
+        holds the write lock for the whole group. With
+        ``SDTPU_STORE_ACTOR=off``, one ``tx()`` per batch."""
         outer = getattr(self._local, "tx_conn", None)
-        if outer is None:
+        if outer is not None:
+            with self._savepoint(outer):
+                yield outer
+            return
+        if not flags.get("SDTPU_STORE_ACTOR"):
             with self.tx() as conn:
                 yield conn
             return
-        outer.execute("SAVEPOINT sdtpu_wtx")
+        t = actor_mod._Ticket()
+        self._actor.enqueue(t)
+        if not t.grant_evt.wait(actor_mod.WRITE_BUDGET_S):
+            raise actor_mod.WriteTxStalled(
+                f"write_tx waited {actor_mod.WRITE_BUDGET_S:.0f} s for the group "
+                "connection: the writer thread is wedged")
+        if t.grant_exc is not None:
+            raise t.grant_exc
+        conn = t.conn
         try:
-            yield outer
-        except BaseException:
-            outer.execute("ROLLBACK TO sdtpu_wtx")
-            outer.execute("RELEASE sdtpu_wtx")
-            raise
-        outer.execute("RELEASE sdtpu_wtx")
+            self._local.tx_conn = conn
+            try:
+                conn.execute("SAVEPOINT sdtpu_wtx")
+            except BaseException:
+                t.body_fatal = True
+                raise
+            try:
+                yield conn
+            except BaseException:
+                try:
+                    conn.execute("ROLLBACK TO sdtpu_wtx")
+                    conn.execute("RELEASE sdtpu_wtx")
+                except sqlite3.Error:
+                    t.body_fatal = True
+                raise
+            try:
+                conn.execute("RELEASE sdtpu_wtx")
+            except BaseException:
+                t.body_fatal = True
+                raise
+            t.body_ok = True
+        finally:
+            # The connection goes back to the actor whatever happened: a
+            # body that kept it would wedge every coalesced writer.
+            self._local.tx_conn = None
+            t.done_evt.set()
+        if not t.commit_evt.wait(actor_mod.WRITE_BUDGET_S):
+            raise actor_mod.WriteTxStalled(
+                "a coalesced batch's group COMMIT did not resolve within "
+                f"{actor_mod.WRITE_BUDGET_S:.0f} s")
+        if t.commit_exc is not None:
+            raise t.commit_exc
+
+    def submit_write(self, fn, loop=None) -> Future:
+        """Closure form of ``write_tx`` for a caller that must not park a
+        thread: ``fn(conn)`` runs on the actor's thread in its own
+        savepoint, and the returned future resolves with its result once
+        the group commits (on `loop` when given). With the actor off the
+        closure runs here under one ``tx()`` and the future comes back
+        resolved."""
+        if not flags.get("SDTPU_STORE_ACTOR"):
+            fut: Future = Future()
+            try:
+                with self.tx() as conn:
+                    res = fn(conn)
+            except BaseException as e:  # noqa: BLE001 (the future carries it)
+                fut.set_exception(e)
+            else:
+                fut.set_result(res)
+            return fut
+        return self._actor.submit(fn, loop=loop)
 
     def checkpoint(self) -> None:
         """Flush the WAL into the main file; never inside a transaction."""

@@ -21,6 +21,8 @@ import pytest
 import torch
 
 from spacedrive_tpu_torch.locations import manager as locations
+from spacedrive_tpu_torch.locations import watcher
+from spacedrive_tpu_torch.locations.non_indexed import walk_ephemeral
 from spacedrive_tpu_torch.objects import validator
 from spacedrive_tpu_torch.objects.dedup import NearDupDetectorJob
 from spacedrive_tpu_torch.objects.identifier import FileIdentifierJob
@@ -91,7 +93,10 @@ def test_scan_covers_the_staging_plane_the_ring_and_the_scan_chain():
             port / "ops" / "hamming_cuda.py", port / "objects" / "dedup.py",
             port / "media" / "jpeg.py", port / "media" / "gif.py",
             port / "media" / "tiff.py", port / "media" / "webp.py",
-            port / "media" / "webp_tables.py"} <= set(PORT_FILES)
+            port / "media" / "webp_tables.py", port / "store" / "actor.py",
+            port / "flags.py", port / "tasks.py", port / "locations" / "shallow.py",
+            port / "locations" / "watcher.py",
+            port / "locations" / "non_indexed.py"} <= set(PORT_FILES)
     assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp",
                                                  "hamming.cu", "imgdec.cpp", "jpegdec.cpp",
                                                  "tiffdec.cpp", "webpdec.cpp"}
@@ -148,12 +153,16 @@ def _grid():
     lambda: hamming.near_dup_pairs(np.zeros((3, 2), np.uint32), 1),
     lambda: hamming.near_dup_pairs_device(np.zeros((3, 2), np.uint32), 1),
     lambda: NearDupDetectorJob(location_id=1),
+    lambda: locations.light_scan_location(None, 1),
+    lambda: walk_ephemeral("/nonexistent", compute_cas_ids=True),
+    lambda: watcher.Locations(),
 ], ids=["blake3_words", "words_to_device", "cas_ids", "checksums",
         "cas_ids_for_files", "validator", "streaming", "stage_batch_native",
         "cas_pool", "run_overlapped", "words_to_device_non_blocking",
         "file_identifier_job", "file_identifier_job_batch", "object_validator_job",
         "scan_location", "scan_location_sub_path", "phash_torch", "phash_files",
-        "near_dup_pairs", "near_dup_pairs_device", "near_dup_detector_job"])
+        "near_dup_pairs", "near_dup_pairs_device", "near_dup_detector_job",
+        "light_scan_location", "walk_ephemeral", "locations_actor"])
 def test_cuda_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

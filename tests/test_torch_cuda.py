@@ -243,6 +243,42 @@ def test_scan_location_on_the_card_matches_plain(cuda, tmp_path, device_batch):
     assert meta["pool"]["pinned_bytes"] > 0
 
 
+def test_light_scan_on_the_card_matches_plain(cuda, tmp_path):
+    """light_scan_location(backend="cuda") of one directory against the
+    plain version in a library of its own: the same counts, CAS IDs and
+    objects; K1 once per size class per page of CHUNK_SIZE orphans."""
+    from spacedrive_tpu_torch.library import Libraries
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.objects.identifier import CHUNK_SIZE
+
+    rng = np.random.default_rng(23)
+    root = tmp_path / "corpus"
+    _marked_corpus(root, 230, 90)
+    for i in range(70):
+        (root / f"s{i}").write_bytes(
+            rng.integers(0, 256, int(rng.integers(1, 102_400)), dtype=np.uint8).tobytes())
+    (root / "dup-a").write_bytes(b"same" * 300)
+    (root / "dup-b").write_bytes(b"same" * 300)
+    (root / "sub").mkdir()
+    (root / "sub" / "not-walked").write_bytes(b"below the directory")
+    out = {}
+    for backend in ("cuda", "plain"):
+        lib = Libraries(str(tmp_path / backend)).create("light")
+        loc = locations.create_location(lib, str(root))
+        blake3_cuda.reset_launches()
+        result = locations.light_scan_location(lib, loc, None, backend=backend)
+        out[backend] = (result, dict(blake3_cuda.launches), _identity(lib),
+                        _step_size_classes(lib, CHUNK_SIZE))
+        lib.db.close()
+    (got, launches, identity, classes), (want, plain_launches, plain_identity, _) = \
+        out["cuda"], out["plain"]
+    assert got == want and got["saved"] == 303 and got["created"] == 301
+    assert identity == plain_identity and "/sub/not-walked" not in identity[0]
+    assert launches[blake3_cuda.FAST] == classes >= 2
+    assert sum(launches.values()) == launches[blake3_cuda.FAST]
+    assert sum(plain_launches.values()) == 0
+
+
 # -- near-dup search: the Hamming kernel, pHash, the pyramid, the job --------
 
 

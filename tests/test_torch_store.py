@@ -152,8 +152,12 @@ def test_tx_folds_the_wal_past_its_budget(tmp_path, monkeypatch):
     monkeypatch.setattr(port_db.Database, "_WAL_CHECK_EVERY", 2)
     monkeypatch.setattr(port_db.Database, "_WAL_BUDGET_BYTES", 0)
     seen = []
-    db._conn().set_trace_callback(seen.append)
     try:
+        # The commits run on the write actor's connection: a first write
+        # opens it (commit 1), then every connection is traced.
+        db.run_tx("library.stats.insert", (9, "x", "0", "0"))
+        for conn in db._all_conns:
+            conn.set_trace_callback(seen.append)
         for i in range(4):
             db.run_tx("library.stats.insert", (i, "x" * 1000, "0", "0"))
         assert seen.count("PRAGMA wal_checkpoint(PASSIVE)") == 2

@@ -55,7 +55,7 @@ with CUDA events. Phases:
    ``verify`` mode (no mismatch);
 9. near-dup job — two image locations written by the harness's own PNG,
    BMP, JPEG, GIF, ICO, TIFF and WebP writers in the system temp dir: A,
-   about 10 000 images of 48–800 px a side (ICO and WebP singles at most
+   about 6 000 images of 48–800 px a side (ICO and WebP singles at most
    256), every PNG colour type, depth and row filter, Adam7 and 16-bit
    PNG, BMP at 8, 24 and 32 bits, JPEG at 4:2:0, 4:2:2, 4:4:4, gray,
    progressive (spectral selection, DC successive approximation), with
@@ -66,16 +66,16 @@ with CUDA events. Phases:
    DNG-shaped TIFF, WebP lossless (predictor, subtract green, colour cache,
    backward references), colour-indexed, lossy (1-8 partitions, segments,
    both loop filters, 16x16 and B_PRED modes), with an ALPH chunk, and a
-   two-frame animation whose first frame is smaller than its canvas; 300
+   two-frame animation whose first frame is smaller than its canvas; 180
    planted near-dup groups (a lossless TIFF, a JPEG and a lossy WebP
-   re-encode in each), 100 byte-identical copies, 20 files the decoder
+   re-encode in each), 60 byte-identical copies, 20 files the decoder
    must refuse (a truncated PNG, a JPEG without EOI, random bytes, a
    truncated TIFF, a WebP whose VP8 data is cut, a JPEG claiming
    arithmetic coding); and B, about 2 000. Each is scanned with
    ``scan_location(backend="cuda")``, then ``NearDupDetectorJob(backend=
    "cuda")`` decodes on the host (native C++ decoders), pHashes 256-image
    steps on the card and runs the exact pairs search: the pyramid
-   (``hamming_near_counts`` launches) at A's ~9 900 digests, one
+   (``hamming_near_counts`` launches) at A's ~5 900 digests, one
    ``hamming_near_mask`` launch at B's ~1 950. Checked: every kind is
    written; the job's errors are exactly the refused files; the native
    grids equal the plain decoder's on a 1024-file sample holding every
@@ -108,12 +108,35 @@ with CUDA events. Phases:
    ``walk_ephemeral(compute_cas_ids=True)`` over 64 PNG and JPEG images
    against its plain version. The write actor's groups, tickets per group
    and commits are printed for phase 7's scan and for this phase;
-12. the kernel table as one JSON line, launches summed over phases 4-11.
+12. media — the media plane's first half, in the system temp dir: a
+   location of about 1 200 images written by the harness's own writers
+   (16 camera-size 4032 x 3024 4:2:0 JPEGs with an APP1 EXIF block of
+   make, model, lens, date, f-number, exposure, ISO, orientation and GPS in
+   all four quadrants; JPEG, PNG ``eXIf``, VP8X WebP with an ``EXIF``
+   chunk, TIFF with IFD0 tags and an Exif sub-IFD, DNG and NEF with a
+   SubIFD JPEG preview, ``.heic``/``.avif`` boxes around a JPEG item and an
+   Exif item; every IMAGE_KINDS kind; seven files of the second media slice)
+   scanned with ``scan_location(backend="cuda", with_media=True)``, the
+   thumbnailer actor running: K1 launched once per size class of each
+   identifier page; every ``media_data`` row reads back what its writer
+   planted (plus codes included) and no other file has one; every
+   thumbnail at its keyed path at ``scale_dimensions``' size; the job's
+   errors exactly the second slice's names; the native decode, thumb_rgb
+   and LANCZOS equal their plain versions on a sample, the encoder's
+   native bytes its plain bytes, the thumbnails' native decode the plain
+   decode, their PSNR against the grid over the tests' floor; a second
+   scan writes nothing; ``walk_ephemeral`` over 64 images hands its CAS
+   IDs to the actor's ephemeral queue. Printed: the job's wall and images/s
+   and the seconds a stage (decode, thumb_rgb, resize, encode, write) by
+   format;
+13. the kernel table as one JSON line, launches summed over phases 4-12,
+   the CV forms beside them with their 0.
 
 Launch counts are reset just before each main path (phases 4 and 5, each
 ring run of phase 6, the scans of phases 7, 8 and 9, each validator job,
-each near-dup job and each search of phase 10, and phase 11's paused scan,
-its watcher's rescans and its browse) and read just after;
+each near-dup job and each search of phase 10, phase 11's paused scan,
+its watcher's rescans and its browse, and phase 12's scans and browse)
+and read just after;
 launches made to compare or time a kernel are not counted. Every failure
 raises, so the exit code is 0 only if every phase passed. The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -324,7 +347,8 @@ def phase_build():
 
     from spacedrive_tpu_torch.ops import _build
 
-    names = ("blake3_chunk", "hamming", "sdio_stage", "imgdec", "jpegdec", "tiffdec", "webpdec")
+    names = ("blake3_chunk", "hamming", "sdio_stage", "imgdec", "jpegdec", "tiffdec", "webpdec",
+             "webpenc")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         list(ex.map(_build.compile_source, names))
@@ -3441,7 +3465,8 @@ def brute_force_pairs(hashes: dict, threshold: int, block: int = 2048) -> list:
 
 # -- phases 9 and 10: near-dup search -----------------------------------------
 
-NEAR_DUP_A = dict(n_files=10_000, groups=300, copies=100, refused=20)
+# Cut from 10 000 files to make room for phase 12 (a cut of scale).
+NEAR_DUP_A = dict(n_files=6_000, groups=180, copies=60, refused=20)
 NEAR_DUP_B = dict(n_files=2_000, groups=60, copies=20, refused=6)
 PLAIN_DECODE_SAMPLE = 1024
 # Phase 10: the job's ALL_PAIRS_LIMIT, the 1M-digest scale of
@@ -4275,6 +4300,615 @@ def phase_live(counts: dict) -> dict:
     return out
 
 
+# -- media plane (phase 12) ---------------------------------------------------
+
+MEDIA_CAMERA = 16             # 4032 x 3024 4:2:0 JPEGs with a camera's EXIF block
+MEDIA_CAMERA_SCENES = 8       # distinct pictures among them (two EXIF blocks each)
+MEDIA_SINGLES = 1100          # small images of every IMAGE_KINDS kind in turn
+MEDIA_BROWSE = 64
+MEDIA_SIDES = ((48, 640), (48, 480))
+MEDIA_PLAIN_SAMPLE = 48       # small images whose grid the plain passes recompute
+MEDIA_PLAIN_ENCODES = 12      # thumbnails the plain encoder and decoder redo
+MEDIA_PSNR_FLOOR = 20.0       # dB, the floor tests/test_torch_thumbnail.py holds too
+MEDIA_BUDGET_S = 90.0
+# The second media slice's files: the job names each, writes no row.
+MEDIA_SLICE2 = ("song.mp3", "voice.wav", "clip.mp4", "movie.mkv", "cover.m4a", "drawing.svg",
+                "paper.pdf")
+# Planted GPS fixes, one a quadrant: (lat d, m, s as a rational, ref, lon ...,
+# ref) and (latitude, longitude, plus code) as the JAX package computes them
+# (spacedrive_tpu/media/exif.py and pluscodes.py, run once where it runs).
+MEDIA_GPS = (
+    ((37, 46, (3025, 100)), "N", (122, 25, (21, 2)), "W",
+     (37.77506944444444, -122.41958333333334, "849VQHGJ+25")),
+    ((33, 52, (4, 1)), "S", (151, 12, (26, 1)), "E",
+     (-33.867777777777775, 151.2072222222222, "4RRH46J4+VV")),
+    ((51, 30, (26, 1)), "N", (0, 7, (39, 1)), "W",
+     (51.507222222222225, -0.1275, "9C3XGV4F+V2")),
+    ((22, 54, (30, 1)), "S", (43, 11, (47, 1)), "W",
+     (-22.90833333333333, -43.19638888888888, "589R3RR3+MC")),
+)
+
+
+def exif_fields(k: int) -> dict:
+    """Camera fields of EXIF block k: what the writer plants and the
+    media_data row must read back."""
+    fix = MEDIA_GPS[k % len(MEDIA_GPS)]
+    return {"make": f"Maker{k % 5}", "model": f"Camera {k}", "software": "fw 2.1",
+            "lens_make": "Optics", "lens_model": f"Lens {k % 3} 24-70mm",
+            "date": f"2024:0{1 + k % 9}:1{k % 10} 0{k % 10}:30:00",
+            "f_number": (14 + k % 50, 10), "exposure_time": (1, 60 + k), "focal_length": (24 + k, 1),
+            "iso": 100 * (1 + k % 32), "orientation": 1 + k % 8, "gps": fix}
+
+
+def exif_tiff(fields: dict, order: str = "<", ifd0_only: bool = False) -> bytes:
+    """A TIFF-structured EXIF block: IFD0 (Make, Model, Software,
+    Orientation and the Exif and GPS IFD offsets), the Exif IFD (the date,
+    f-number, exposure, ISO, focal length, lens), the GPS IFD (both
+    references and both degree triples)."""
+    def asc(s):
+        return (2, list((s + "\x00").encode("latin-1")))
+
+    (lat, lat_ref, lon, lon_ref, _) = fields["gps"]
+
+    def dms(v):
+        d, m, s = v
+        return (5, [d, 1, m, 1, s[0], s[1]])
+
+    ifd0 = {271: asc(fields["make"]), 272: asc(fields["model"]), 305: asc(fields["software"]),
+            274: (3, [fields["orientation"]])}
+    exif = {0x9003: asc(fields["date"]), 0x829D: (5, list(fields["f_number"])),
+            0x829A: (5, list(fields["exposure_time"])), 0x920A: (5, list(fields["focal_length"])),
+            0x8827: (3, [fields["iso"]]), 0xA433: asc(fields["lens_make"]),
+            0xA434: asc(fields["lens_model"])}
+    gps = {1: asc(lat_ref), 2: dms(lat), 3: asc(lon_ref), 4: dms(lon)}
+    if ifd0_only:
+        return _exif_layout([ifd0], order)
+    ifd0 = {**ifd0, 0x8769: (4, [0]), 0x8825: (4, [0])}
+    return _exif_layout([ifd0, exif, gps], order)
+
+
+def _exif_ifd(entries: dict, at: int, order: str) -> bytes:
+    body = struct.pack(order + "H", len(entries))
+    extra_at = at + 2 + 12 * len(entries) + 4
+    extra = b""
+    for tag in sorted(entries):
+        kind, values = entries[tag]
+        payload = bytes(values) if kind == 2 else struct.pack(
+            order + {3: "H", 4: "I", 5: "I"}[kind] * len(values), *values)
+        count = len(values) // 2 if kind == 5 else len(values)
+        if len(payload) <= 4:
+            field = payload.ljust(4, b"\x00")
+        else:
+            field = struct.pack(order + "I", extra_at + len(extra))
+            extra += payload + b"\x00" * (len(payload) & 1)
+        body += struct.pack(order + "HHI", tag, kind, count) + field
+    return body + b"\x00\x00\x00\x00" + extra
+
+
+def _exif_layout(ifds: list, order: str) -> bytes:
+    """IFD0 at 8, then the Exif and GPS IFDs, IFD0's pointers filled."""
+    sizes = [len(_exif_ifd(d, 0, order)) for d in ifds]
+    at = [8]
+    for n in sizes[:-1]:
+        at.append(at[-1] + n)
+    if len(ifds) == 3:
+        ifds[0][0x8769], ifds[0][0x8825] = (4, [at[1]]), (4, [at[2]])
+    head = (b"II*\x00" if order == "<" else b"MM\x00*") + struct.pack(order + "I", 8)
+    return head + b"".join(_exif_ifd(d, a, order) for d, a in zip(ifds, at))
+
+
+def expected_media_row(fields: dict, ifd0_only: bool = False) -> dict:
+    """The camera_data and media_location (decoded) a row of `fields` holds."""
+    cam = {"make": fields["make"], "model": fields["model"], "software": fields["software"],
+           "orientation": fields["orientation"]}
+    if ifd0_only:
+        return {"camera_data": cam}
+    cam.update(lens_make=fields["lens_make"], lens_model=fields["lens_model"],
+               f_number=fields["f_number"][0] / fields["f_number"][1],
+               exposure_time=fields["exposure_time"][0] / fields["exposure_time"][1],
+               focal_length=fields["focal_length"][0] / fields["focal_length"][1],
+               iso=fields["iso"])
+    lat, lon, code = fields["gps"][4]
+    return {"camera_data": cam, "media_date": fields["date"],
+            "media_location": {"latitude": lat, "longitude": lon, "pluscode": code}}
+
+
+def jpeg_with_exif(jpeg: bytes, tiff: bytes) -> bytes:
+    seg = b"Exif\x00\x00" + tiff
+    return jpeg[:2] + b"\xff\xe1" + struct.pack(">H", len(seg) + 2) + seg + jpeg[2:]
+
+
+def png_with_exif(png: bytes, tiff: bytes) -> bytes:
+    at = png.index(b"IDAT") - 4
+    return png[:at] + png_chunk(b"eXIf", tiff) + png[at:]
+
+
+def webp_with_exif(rgb: np.ndarray, tiff: bytes) -> bytes:
+    """A VP8X lossless WebP with an EXIF chunk after its image."""
+    h, w, _ = rgb.shape
+    vp8x = riff_chunk(b"VP8X", bytes([0x08, 0, 0, 0]) + (w - 1).to_bytes(3, "little") +
+                      (h - 1).to_bytes(3, "little"))
+    return riff_webp(vp8x + riff_chunk(b"VP8L", webp_lossless_stream(rgb_to_argb(rgb)))
+                     + riff_chunk(b"EXIF", tiff))
+
+
+def tiff_with_exif(rgb: np.ndarray, fields: dict) -> bytes:
+    """An RGB TIFF whose IFD0 carries Make, Model, Software, Orientation 1
+    and an Exif IFD pointer; the Exif IFD (date, f-number, ...) after the
+    image. PIL's row reads IFD0 only: the JAX function asks for the sub-IFD
+    after its file is closed."""
+    tags = {271: (2, list((fields["make"] + "\x00").encode())),
+            272: (2, list((fields["model"] + "\x00").encode())),
+            305: (2, list((fields["software"] + "\x00").encode())), 274: (3, [1]),
+            0x8769: (4, [0])}
+    data = tiff_bytes(tiff_image(rgb, 2, 8, rows_per_strip=32, tags=tags))
+    sub = _exif_ifd({0x9003: (2, list((fields["date"] + "\x00").encode())),
+                     0x8827: (3, [fields["iso"]])}, len(data), "<")
+    ifd0 = struct.unpack_from("<I", data, 4)[0]
+    n = struct.unpack_from("<H", data, ifd0)[0]
+    out = bytearray(data)
+    for i in range(n):
+        e = ifd0 + 2 + 12 * i
+        if struct.unpack_from("<H", out, e)[0] == 0x8769:
+            struct.pack_into("<I", out, e + 8, len(data))
+    return bytes(out) + sub
+
+
+def raw_with_preview(rgb: np.ndarray, preview: bytes, make: str) -> bytes:
+    """A TIFF-structured RAW (.dng/.nef): IFD0 a small 8-bit RGB strip with
+    Make and Model, its SubIFD a JPEGInterchangeFormat preview."""
+    small = rgb[:16, :16]
+    ifd0 = tiff_image(small, 2, 8, rows_per_strip=16,
+                      tags={254: (4, [1]), 271: (2, list((make + "\x00").encode())),
+                            272: (2, list(b"RAW 1\x00"))})
+    base = tiff_bytes(ifd0)
+    sub_at = len(base)
+    jpeg_at = sub_at + 2 + 12 * 3 + 4
+    sub = struct.pack("<H", 3) + struct.pack("<HHII", 254, 4, 1, 0) + \
+        struct.pack("<HHII", 0x201, 4, 1, jpeg_at) + \
+        struct.pack("<HHII", 0x202, 4, 1, len(preview)) + struct.pack("<I", 0)
+    at = struct.unpack_from("<I", base, 4)[0]
+    n = struct.unpack_from("<H", base, at)[0]
+    # IFD0 gains SubIFDs (330) in place of its NewSubfileType's value slot:
+    # rewrite the entry table with one more entry at the file's end.
+    entries = [base[at + 2 + 12 * i:at + 14 + 12 * i] for i in range(n)]
+    entries.append(struct.pack("<HHII", 330, 4, 1, sub_at))
+    entries.sort(key=lambda e: struct.unpack_from("<H", e)[0])
+    new_at = jpeg_at + len(preview) + (len(preview) & 1)
+    table = struct.pack("<H", n + 1) + b"".join(entries) + b"\x00\x00\x00\x00"
+    out = bytearray(base + sub + preview + b"\x00" * (len(preview) & 1) + table)
+    struct.pack_into("<I", out, 4, new_at)
+    return bytes(out)
+
+
+def _box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def heif_with_jpeg(jpeg: bytes, tiff: bytes, width: int, height: int, brand: bytes) -> bytes:
+    """An ISO BMFF file: a JPEG-coded primary item, an Exif item, the
+    primary's size in ispe (the layout media/isobmff.py reads)."""
+    ftyp = _box(b"ftyp", brand + b"\x00\x00\x00\x00mif1" + brand)
+    pitm = _box(b"pitm", b"\x00\x00\x00\x00" + struct.pack(">H", 1))
+    infe = [_box(b"infe", b"\x02\x00\x00\x00" + struct.pack(">HH", i, 0) + t + b"\x00")
+            for i, t in ((1, b"jpeg"), (2, b"Exif"))]
+    iinf = _box(b"iinf", b"\x00\x00\x00\x00" + struct.pack(">H", 2) + b"".join(infe))
+    ispe = _box(b"ispe", b"\x00\x00\x00\x00" + struct.pack(">II", width, height))
+    iprp = _box(b"iprp", _box(b"ipco", ispe))
+    exif_item = struct.pack(">I", 0) + tiff
+
+    def build(off1, off2):
+        iloc = _box(b"iloc", b"\x00\x00\x00\x00" + struct.pack(">BBH", 0x44, 0, 2)
+                    + struct.pack(">HHHII", 1, 0, 1, off1, len(jpeg))
+                    + struct.pack(">HHHII", 2, 0, 1, off2, len(exif_item)))
+        hdlr = _box(b"hdlr", bytes(8) + b"pict" + bytes(13))
+        return ftyp + _box(b"meta", b"\x00\x00\x00\x00" + hdlr + pitm + iinf + iloc + iprp)
+
+    at = len(build(0, 0)) + 8
+    return build(at, at + len(jpeg)) + _box(b"mdat", jpeg + exif_item)
+
+
+def camera_scene(k: int) -> np.ndarray:
+    """A 4032 x 3024 picture: smooth gradients and a few edges."""
+    h, w = 3024, 4032
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 100 * np.sin(x / (250 + 30 * k) + y / 470),
+                    128 + 90 * np.cos(y / (380 + 20 * k) - x / 900),
+                    (x + y * (k + 1)) / 31 % 256], -1)
+    img[(y.astype(np.int64) // 500 + x.astype(np.int64) // 700 + k) % 5 == 0] *= 0.6
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _media_task(root: Path, seed: int, task) -> dict:
+    """Write one phase 12 file; returns {path: (bytes written, expected,
+    (w, h) or None, kind)}: `expected` the row the file must read back ({}
+    for a resolution-only row, None for no row), (w, h) the size of the
+    image the thumbnail is made from (None where the port's decoder says)."""
+    kind, k, path = task
+    rng = np.random.default_rng([seed, k, len(kind)])
+    out = {}
+    if kind == "camera":  # one picture, a file for each of its EXIF blocks
+        jpeg = jpeg_bytes(camera_scene(k), 85, (2, 2))
+        for j in range(k, MEDIA_CAMERA, MEDIA_CAMERA_SCENES):
+            fields = exif_fields(j)
+            out[f"camera/IMG_{j:04d}.jpg"] = (jpeg_with_exif(jpeg, exif_tiff(fields)),
+                                              expected_media_row(fields), (4032, 3024),
+                                              "jpeg_camera")
+    elif kind == "exif":
+        h, w = _side(rng, MEDIA_SIDES[1]), _side(rng, MEDIA_SIDES[0])
+        rgb = np.clip(image_scene(rng, h, w), 0, 255).astype(np.uint8)
+        fields = exif_fields(100 + k)
+        fmt = ("jpg", "png", "webp", "tiff", "heic", "avif", "dng", "nef")[k % 8]
+        if fmt == "jpg":
+            data = jpeg_with_exif(jpeg_bytes(rgb, 90), exif_tiff(fields, ">"))
+            want, size = expected_media_row(fields), (w, h)
+        elif fmt == "png":
+            data = png_with_exif(encode_image(rng, rgb, "png_rgb")[0], exif_tiff(fields))
+            want, size = expected_media_row(fields), (w, h)
+        elif fmt == "webp":
+            small = rgb[:256, :256]
+            data = webp_with_exif(small, exif_tiff(fields))
+            want, size = expected_media_row(fields), (small.shape[1], small.shape[0])
+        elif fmt == "tiff":
+            data = tiff_with_exif(rgb, fields)
+            want, size = expected_media_row(fields, ifd0_only=True), (w, h)
+            want["camera_data"]["orientation"] = 1
+        elif fmt in ("heic", "avif"):
+            data = heif_with_jpeg(jpeg_bytes(rgb, 90), exif_tiff(fields), 4 * w, 4 * h,
+                                  fmt.encode())
+            want, size = expected_media_row(fields), (w, h)
+            want["resolution"] = (4 * w, 4 * h)
+        else:
+            data = raw_with_preview(rgb, jpeg_bytes(rgb, 90), fields["make"])
+            want = {"camera_data": {"make": fields["make"], "model": "RAW 1"},
+                    "resolution": (16, 16)} if fmt == "dng" else None
+            size = (w, h)
+        out[path.replace(".ext", f".{fmt}")] = (data, want, size, f"{fmt}_exif")
+    elif kind == "single":
+        enc = IMAGE_KINDS[k % len(IMAGE_KINDS)]
+        h, w = _side(rng, MEDIA_SIDES[1]), _side(rng, MEDIA_SIDES[0])
+        px = np.clip(image_scene(rng, h, w), 0, 255).astype(np.uint8)
+        data, ext = encode_image(rng, px, enc)
+        ext = {"tif": "tiff"}.get(ext, ext)
+        media = ext in ("jpg", "png", "webp", "tiff", "dng")
+        out[path.replace(".ext", f".{ext}")] = (data, {} if media else None, None, enc)
+    else:  # the second media slice's files
+        out[path] = (bytes(rng.integers(0, 256, 2000, dtype=np.uint8)), None, None, "slice2")
+    for rel, (data, *_rest) in out.items():
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_bytes(data)
+    return {rel: (len(data), *rest) for rel, (data, *rest) in out.items()}
+
+
+def write_media_corpus(root: Path, seed: int, executor) -> dict:
+    """Phase 12's location: the camera JPEGs, EXIF-bearing files of every
+    media format, IMAGE_KINDS singles and the second slice's names."""
+    tasks = [("camera", k, "camera") for k in range(MEDIA_CAMERA_SCENES)]
+    tasks += [("exif", k, f"exif/x{k:04d}.ext") for k in range(64)]
+    tasks += [("single", k, f"d{k // 256:02d}/s{k:05d}.ext") for k in range(MEDIA_SINGLES)]
+    tasks += [("slice2", k, f"later/{name}") for k, name in enumerate(MEDIA_SLICE2)]
+    import functools
+
+    made = {}
+    for part in executor.map(functools.partial(_media_task, root, seed), tasks):
+        made.update(part)
+    return {"files": {rel: rest for rel, (_, *rest) in made.items()},
+            "bytes": sum(n for n, *_ in made.values())}
+
+
+class _MediaOwner:
+    """The thumbnailer's owner in the smoke run (the port has no Node yet)."""
+
+    def __init__(self, data_dir: str, libraries):
+        self.data_dir = data_dir
+        self.events_seen = collections.Counter()
+        owner = self
+
+        class _Events:
+            def emit(self, event):
+                owner.events_seen[(event["type"], event.get("ephemeral"))] += 1
+
+        class _Libraries:
+            def list(self):
+                return list(libraries)
+
+        self.events, self.libraries = _Events(), _Libraries()
+
+
+@contextlib.contextmanager
+def media_stage_clock(seconds: dict):
+    """While open, the thumbnail passes' wall times add up in
+    seconds[(format, stage)], the format that of the file the same thread
+    last opened (each thumbnail runs on one worker thread from its decode
+    to its write): decode (decode_image), thumb_rgb, resize, encode,
+    write. A camera JPEG counts as ``jpeg_camera``, a RAW preview as
+    ``raw``."""
+    import threading
+
+    from spacedrive_tpu_torch import native, persist
+    from spacedrive_tpu_torch.media import images, imgdecode, rawpreview, webpenc
+
+    local = threading.local()
+    lock = threading.Lock()
+
+    def opener(module, name, fmt_of):
+        fn = getattr(module, name)
+
+        def wrapper(path, *args, **kwargs):
+            local.fmt = fmt_of(str(path))
+            return fn(path, *args, **kwargs)
+
+        return module, name, fn, wrapper
+
+    def timed(module, name, stage):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            dt = time.perf_counter() - t0
+            with lock:
+                key = (getattr(local, "fmt", "?"), stage)
+                seconds[key] = seconds.get(key, 0.0) + dt
+            return out
+
+        return module, name, fn, wrapper
+
+    patches = [opener(images, "format_image",
+                      lambda p: "jpeg_camera" if "/camera/" in p else file_format(p)),
+               opener(rawpreview, "extract_preview", lambda p: "raw"),
+               timed(imgdecode, "decode_image", "decode"),
+               timed(imgdecode, "thumb_rgb", "thumb_rgb"),
+               timed(native, "resample_image", "resize"),
+               timed(webpenc, "encode", "encode"),
+               timed(persist, "atomic_write", "write")]
+    for module, name, _, wrapper in patches:
+        setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        for module, name, fn, _ in patches:
+            setattr(module, name, fn)
+
+
+def _media_plain_one(path: str) -> bool:
+    """Whether the native and the plain passes give `path` one grid."""
+    from spacedrive_tpu_torch.media import images, thumbnail
+
+    px, mode = images.format_image(path)
+    ppx, pmode = images.format_image(path, native=False)
+    return (mode == pmode and np.array_equal(px, ppx) and np.array_equal(
+        thumbnail.thumbnail_rgb(px, mode), thumbnail.thumbnail_rgb(ppx, pmode, native=False)))
+
+
+def _media_encode_one(args) -> tuple:
+    """The grid of `src` encoded natively and plainly, and the thumbnail at
+    `thumb` decoded natively and plainly: (bytes equal, decodes equal,
+    PSNR of the decoded thumbnail against the grid)."""
+    src, thumb = args
+    from spacedrive_tpu_torch.media import images, imgdecode, thumbnail, webpenc
+
+    grid = thumbnail.thumbnail_rgb(*images.format_image(src))
+    data = webpenc.encode(grid)
+    same_bytes = data == webpenc.encode(grid, native=False) and data == Path(thumb).read_bytes()
+    decoded = imgdecode.decode_image(data)[0]
+    same_decode = np.array_equal(decoded, imgdecode.decode_image(data, native=False)[0])
+    mse = float(((decoded.astype(np.float64) - grid) ** 2).mean())
+    return same_bytes, same_decode, 99.0 if mse == 0 else 10 * np.log10(255 ** 2 / mse)
+
+
+def media_rows(lib, root: Path) -> dict:
+    from spacedrive_tpu_torch import _msgpack
+
+    rows = {}
+    for r in lib.db.query("SELECT fp.materialized_path, fp.name, fp.extension, md.* "
+                          "FROM media_data md JOIN file_path fp ON fp.object_id = md.object_id"):
+        rel = (r["materialized_path"].lstrip("/") + r["name"] + "." + r["extension"])
+        row = {k: _msgpack.unpackb(r[k]) for k in ("resolution", "media_date", "media_location",
+                                                   "camera_data") if r[k] is not None}
+        rows[rel] = row
+    return rows
+
+
+def run_media_scan(lib, location_id: int, data_dir: str, owner, counts: dict, key: str):
+    """scan_location(backend="cuda", with_media=True) with the thumbnailer
+    running; the launch counts reset just before and read just after."""
+    import asyncio
+
+    from spacedrive_tpu_torch.jobs.manager import JobManager
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.media.actor import Thumbnailer
+    from spacedrive_tpu_torch.ops import blake3_cuda, hamming_cuda
+
+    async def main():
+        actor = Thumbnailer(owner)
+        actor.start()
+        jobs = JobManager(services={"data_dir": data_dir, "thumbnailer": actor})
+        await locations.scan_location(jobs, lib, location_id, backend="cuda", with_media=True)
+        await jobs.wait_idle()
+        await actor.stop()
+
+    torch.cuda.synchronize()
+    blake3_cuda.reset_launches()
+    hamming_cuda.reset_launches()
+    t0 = time.perf_counter()
+    asyncio.run(main())
+    wall = time.perf_counter() - t0
+    counts[key] = {**blake3_cuda.launches, **hamming_cuda.launches}
+    return wall
+
+
+def phase_media(counts: dict) -> dict:
+    """Phase 12: the media plane's first half on the card."""
+    import asyncio
+
+    from spacedrive_tpu_torch.jobs.report import JobStatus
+    from spacedrive_tpu_torch.library import Libraries
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.locations.non_indexed import (queue_ephemeral_thumbnails,
+                                                            walk_ephemeral)
+    from spacedrive_tpu_torch.media import imgdecode
+    from spacedrive_tpu_torch.media.actor import Thumbnailer
+    from spacedrive_tpu_torch.media.images import GENERIC_EXTENSIONS
+    from spacedrive_tpu_torch.media.processor import not_ported
+    from spacedrive_tpu_torch.media.rawpreview import RAW_TIFF_EXTENSIONS
+    from spacedrive_tpu_torch.media.thumbnail import scale_dimensions, thumbnail_path
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.ops.cas import MINIMUM_FILE_SIZE
+
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-media-") as tmp, \
+            corpus_executor() as executor:
+        workdir = Path(tmp)
+        root, data_dir = workdir / "photos", str(workdir / "data")
+        t0 = time.perf_counter()
+        made = write_media_corpus(root, 61, executor)
+        corpus_s = time.perf_counter() - t0
+        files = made["files"]
+        lib = Libraries(data_dir).create("chip-smoke-media")
+        owner = _MediaOwner(data_dir, [lib])
+        try:
+            location_id = locations.create_location(lib, str(root))
+            stage_s: dict = {}
+            with media_stage_clock(stage_s):
+                wall = run_media_scan(lib, location_id, data_dir, owner, counts, "media_scan")
+            reports = {r.name: r for r in job_reports(lib)}
+            ident, media = reports["file_identifier"], reports["media_processor"]
+            # K1: one launch a size class of each identifier page.
+            sizes = [int.from_bytes(r["size_in_bytes_bytes"], "big") for r in lib.db.query(
+                "SELECT size_in_bytes_bytes FROM file_path WHERE is_dir = 0 ORDER BY id")]
+            step = ident.metadata["chunk_size"]
+            pages = sum(any(s > MINIMUM_FILE_SIZE for s in p) + any(0 < s <= MINIMUM_FILE_SIZE
+                                                                     for s in p)
+                        for p in (sizes[k:k + step] for k in range(0, len(sizes), step)))
+            k1 = counts["media_scan"][blake3_cuda.FAST]
+            require(k1 == pages, f"phase 12: K1 launched {k1} times for {pages} page classes")
+            require(media.status == JobStatus.COMPLETED_WITH_ERRORS,
+                    f"phase 12: media job ended {media.status.name}")
+            want_errors = sorted(not_ported(n.rsplit(".", 1)[1]) for n in MEDIA_SLICE2)
+            require(sorted(media.errors_text) == want_errors,
+                    f"phase 12: media job errors {media.errors_text[:4]} != {want_errors}")
+            # Every row reads back what its writer planted.
+            rows = media_rows(lib, root)
+            want_rows = {rel: f[0] for rel, f in files.items() if f[0] is not None}
+            require(set(rows) == set(want_rows),
+                    f"phase 12: rows for {sorted(set(rows) ^ set(want_rows))[:4]}")
+            for rel, want in want_rows.items():
+                got = rows.get(rel, {})
+                for key, value in want.items():
+                    if key == "resolution":
+                        value = {"width": value[0], "height": value[1]}
+                    require(got.get(key) == value, f"phase 12: {rel} {key} {got.get(key)} != "
+                                                   f"{value}")
+            # Every thumbnail at its keyed path, at scale_dimensions' size.
+            by_path = {r["materialized_path"].lstrip("/") + r["name"] + "." + r["extension"]:
+                       r["cas_id"] for r in lib.db.query(
+                           "SELECT materialized_path, name, extension, cas_id FROM file_path "
+                           "WHERE is_dir = 0")}
+            thumbs = 0
+            for rel, (_, size, kind) in files.items():
+                path = thumbnail_path(data_dir, by_path[rel])
+                ext = rel.rsplit(".", 1)[1]
+                if size is None and kind != "slice2" and ext not in RAW_TIFF_EXTENSIONS:
+                    size = imgdecode.decode_image((root / rel).read_bytes())[0].shape[1::-1]
+                if size is None:  # a RAW without a JPEG preview, or slice 2's
+                    require(not os.path.exists(path), f"phase 12: a thumbnail of {rel}")
+                    continue
+                require(os.path.exists(path), f"phase 12: no thumbnail of {rel}")
+                got = imgdecode.decode_image(Path(path).read_bytes())[0].shape[1::-1]
+                require(tuple(got) == scale_dimensions(*size),
+                        f"phase 12: {rel} thumbnail {got} != {scale_dimensions(*size)}")
+                thumbs += 1
+            require(thumbs == media.metadata["thumbnails_generated"],
+                    f"phase 12: {thumbs} thumbnails checked, the job made "
+                    f"{media.metadata['thumbnails_generated']}")
+            # Native passes against plain, the encoder's bytes, the decode.
+            rng = np.random.default_rng(12)
+            small = sorted(rel for rel, f in files.items()
+                           if f[2] not in ("slice2", "jpeg_camera") and
+                           rel.rsplit(".", 1)[1] in GENERIC_EXTENSIONS)
+            sample = sorted(rng.choice(small, MEDIA_PLAIN_SAMPLE, replace=False).tolist())
+            t0 = time.perf_counter()
+            same_grid = list(executor.map(_media_plain_one, [str(root / p) for p in sample]))
+            enc = sorted(rng.choice(small, MEDIA_PLAIN_ENCODES, replace=False).tolist()) + \
+                [sorted(r for r in files if files[r][2] == "jpeg_camera")[0]]
+            checked = list(executor.map(_media_encode_one, [
+                (str(root / p), thumbnail_path(data_dir, by_path[p])) for p in enc]))
+            plain_s = time.perf_counter() - t0
+            require(all(same_grid), f"phase 12: native grids != plain on "
+                                    f"{[p for p, ok in zip(sample, same_grid) if not ok][:3]}")
+            require(all(c[0] for c in checked), "phase 12: encoder native bytes != plain")
+            require(all(c[1] for c in checked), "phase 12: thumbnail decode native != plain")
+            psnr = [c[2] for c in checked]
+            require(min(psnr) >= MEDIA_PSNR_FLOOR,
+                    f"phase 12: thumbnail PSNR {min(psnr):.2f} dB under {MEDIA_PSNR_FLOOR}")
+            # A second scan writes nothing new.
+            n_rows = len(rows)
+            stamps = {p: os.stat(p).st_mtime_ns for p in Path(data_dir, "thumbnails").rglob(
+                "*.webp")}
+            rescan_wall = run_media_scan(lib, location_id, data_dir, owner, counts,
+                                         "media_rescan")
+            require(len(media_rows(lib, root)) == n_rows, "phase 12: the rescan wrote rows")
+            require({p: os.stat(p).st_mtime_ns for p in Path(data_dir, "thumbnails").rglob(
+                "*.webp")} == stamps, "phase 12: the rescan rewrote thumbnails")
+            # The ephemeral browse: K1 keys, the actor's ephemeral queue.
+            browse = workdir / "browse"
+            browse.mkdir()
+            for k in range(MEDIA_BROWSE):
+                px = np.clip(image_scene(np.random.default_rng(k), 120 + k, 160), 0, 255)
+                data, ext = encode_image(np.random.default_rng(k), px.astype(np.uint8),
+                                         ("png_rgb", "jpeg420")[k % 2])
+                (browse / f"b{k:03d}.{ext}").write_bytes(data)
+
+            async def browse_main():
+                actor = Thumbnailer(owner)
+                actor.start()
+                entries = walk_ephemeral(str(browse), compute_cas_ids=True, device="cuda")
+                batch = await queue_ephemeral_thumbnails(actor, entries)
+                await batch.done.wait()
+                await actor.stop()
+                return entries, batch
+
+            blake3_cuda.reset_launches()
+            t0 = time.perf_counter()
+            entries, batch = asyncio.run(browse_main())
+            browse_s = time.perf_counter() - t0
+            counts["media_browse"] = dict(blake3_cuda.launches)
+            require(batch.generated == MEDIA_BROWSE and all(
+                os.path.exists(thumbnail_path(data_dir, e["cas_id"])) for e in entries),
+                f"phase 12: the browse made {batch.generated} of {MEDIA_BROWSE} thumbnails")
+        finally:
+            lib.db.close()
+    n_images = sum(1 for f in files.values() if f[2] != "slice2")
+    by_format = collections.defaultdict(dict)
+    n_by_format = collections.Counter()
+    for rel, f in files.items():
+        if os.path.splitext(rel)[1] and f[2] != "slice2":
+            n_by_format[file_format(rel) if f[2] != "jpeg_camera" else "jpeg_camera"] += 1
+    for (fmt, stage), s in sorted(stage_s.items()):
+        by_format[fmt][stage] = s
+    phase_wall = time.perf_counter() - t_all
+    out = dict(wall_s=phase_wall, corpus_write_s=corpus_s, corpus_bytes=made["bytes"],
+               images=n_images, files=len(files), job_wall_s=wall,
+               images_per_s=n_images / wall, rows=len(rows), thumbnails=thumbs,
+               media_phase_s=media.metadata, identifier_s=ident.date_completed - ident.date_started,
+               stage_s_by_format={k: dict(v) for k, v in by_format.items()},
+               stage_ms_per_image={stage: 1e3 * sum(s for (f, st), s in stage_s.items()
+                                                    if st == stage) / max(thumbs, 1)
+                                   for stage in ("decode", "thumb_rgb", "resize", "encode",
+                                                 "write")},
+               images_by_format=dict(n_by_format), rescan_wall_s=rescan_wall,
+               browse_s=browse_s, plain_checks_s=plain_s, psnr_db_min=min(psnr),
+               psnr_db_mean=float(np.mean(psnr)), events=dict(
+                   (f"{t}{'/ephemeral' if e else ''}", n)
+                   for (t, e), n in owner.events_seen.items()),
+               launches={k: counts[k] for k in ("media_scan", "media_rescan", "media_browse")})
+    emit("media", **out)
+    require(phase_wall <= MEDIA_BUDGET_S,
+            f"phase 12 took {phase_wall:.1f} s, past its {MEDIA_BUDGET_S} s")
+    return out
+
+
 REPLACES = {
     "blake3_chunk_fast": "spacedrive_tpu/ops/blake3_pallas.py:121",
     "blake3_chunk_fast_cvs": "spacedrive_tpu/ops/blake3_pallas.py:121",
@@ -4338,15 +4972,14 @@ def main() -> int:
     stats["hamming_near_mask"] = scale["mask"][f"{near_dup['B']['objects_hashed']}x2"]
     stats["hamming_near_counts"] = scale["counts"]["sweep"]
     phase_live(counts)
+    phase_media(counts)
 
     kernels = []
     for name, replaces in REPLACES.items():
         launches = sum(c.get(name, 0) for c in counts.values())
         if name in MAIN_PATH:
             require(launches > 0, f"{name} never launched on a main path")
-        elif launches == 0:
-            continue  # a CV form: held against plain above, on no main path
-        s = stats[name]
+        s = stats[name]  # a CV form (on no main path) is listed with its 0 launches
         kernels.append({
             "name": name, "route": "cuda",
             "source": SOURCES.get(name, "spacedrive_tpu_torch/csrc/blake3_chunk.cu"),

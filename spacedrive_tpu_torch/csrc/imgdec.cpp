@@ -2,7 +2,7 @@
 //
 // The JAX package decodes images with PIL (spacedrive_tpu/ops/phash.py,
 // image_to_grid); the machine with the card has no PIL, so the port decodes
-// PNG and BMP itself and must give PIL's 32x32 grid bit for bit. Three
+// PNG and BMP itself and must give PIL's 32x32 grid bit for bit. These
 // passes run here, each one loop over the pixels with the interpreter lock
 // released by ctypes for the call:
 //
@@ -13,10 +13,12 @@
 // - PIL's RGB -> L conversion (L24, Convert.c rgb2l) over any pixel layout;
 // - the LZW decoder of a GIF frame's image data (media/gif.py; its plain
 //   version, lzw_plain, a Python loop over codes);
-// - PIL's LANCZOS resample of an L image (Resample.c: precompute_coeffs,
-//   normalize_coeffs_8bpc, the 8bpc horizontal then vertical pass), which
-//   touches only each output's taps; the plain version is a float64 matrix
-//   product of the same fixed-point weights (imgdecode.resize_lanczos).
+// - PIL's LANCZOS resample of an L or RGB image to any size (Resample.c:
+//   precompute_coeffs, normalize_coeffs_8bpc, the 8bpc horizontal then
+//   vertical pass), which touches only each output's taps; the plain
+//   versions are imgdecode.resize_lanczos (the pHash grid, a float64 matrix
+//   product of the same fixed-point weights) and imgdecode.resize_image;
+// - the thumbnailer's conversion of a decoded image to RGB (thumb_rgb).
 //
 // Built by ops/_build.py with g++ (-ffp-contract=off, so the weights' double
 // arithmetic rounds as PIL's does) at first use; called through native.py.
@@ -168,53 +170,99 @@ void sd_luma(const uint8_t* in, int64_t h, int64_t w, int64_t row_stride,
   }
 }
 
-// PIL's resize((edge, edge), LANCZOS) of an [h, w] L image into out
-// [edge, edge]: the horizontal pass over the rows the vertical pass reads,
-// rounded and clipped to uint8, then the vertical pass. A side already
-// `edge` long is not resampled.
-void sd_resample_lanczos(const uint8_t* in, int64_t h, int64_t w, int64_t edge,
-                         uint8_t* out) {
+// PIL's resize((out_w, out_h), LANCZOS) of an [h, w, c] 8-bit image
+// (c interleaved bands: L, or RGB) into out [out_h, out_w, c]: the
+// horizontal pass over the rows the vertical pass reads, rounded and
+// clipped to uint8 band by band, then the vertical pass. A side that keeps
+// its length is not resampled.
+void sd_resample_lanczos_image(const uint8_t* in, int64_t h, int64_t w, int64_t c,
+                               int64_t out_h, int64_t out_w, uint8_t* out) {
   std::vector<int64_t> bounds_h, bounds_v;
   std::vector<int32_t> kk_h, kk_v;
-  const int64_t ksize_h = lanczos_coeffs(w, edge, bounds_h, kk_h);
-  const int64_t ksize_v = lanczos_coeffs(h, edge, bounds_v, kk_v);
   const uint8_t* src = in;
   int64_t src_w = w;
   std::vector<uint8_t> tmp;
   int64_t first = 0;  // the first input row the vertical pass reads
-  if (w != edge) {
+  int64_t ksize_v = 0;
+  if (h != out_h) ksize_v = lanczos_coeffs(h, out_h, bounds_v, kk_v);
+  if (w != out_w) {
+    const int64_t ksize_h = lanczos_coeffs(w, out_w, bounds_h, kk_h);
     int64_t last = h;
-    if (h != edge) {
+    if (h != out_h) {
       first = bounds_v[0];
-      last = bounds_v[edge * 2 - 2] + bounds_v[edge * 2 - 1];
+      last = bounds_v[out_h * 2 - 2] + bounds_v[out_h * 2 - 1];
     }
-    tmp.resize((size_t)((last - first) * edge));
+    tmp.resize((size_t)((last - first) * out_w * c));
     for (int64_t y = first; y < last; ++y) {
-      const uint8_t* row = in + y * w;
-      for (int64_t xx = 0; xx < edge; ++xx) {
+      const uint8_t* row = in + y * w * c;
+      uint8_t* dst = &tmp[(size_t)((y - first) * out_w * c)];
+      for (int64_t xx = 0; xx < out_w; ++xx) {
         const int64_t xmin = bounds_h[xx * 2], xmax = bounds_h[xx * 2 + 1];
         const int32_t* k = &kk_h[xx * ksize_h];
-        int32_t ss = 1 << (PRECISION_BITS - 1);
-        for (int64_t x = 0; x < xmax; ++x) ss += (int32_t)row[x + xmin] * k[x];
-        tmp[(y - first) * edge + xx] = clip8(ss);
+        for (int64_t b = 0; b < c; ++b) {
+          int32_t ss = 1 << (PRECISION_BITS - 1);
+          for (int64_t x = 0; x < xmax; ++x) ss += (int32_t)row[(x + xmin) * c + b] * k[x];
+          dst[xx * c + b] = clip8(ss);
+        }
       }
     }
     src = tmp.data();
-    src_w = edge;
+    src_w = out_w;
   }
-  if (h == edge) {
-    std::memcpy(out, src, (size_t)(edge * edge));
+  if (h == out_h) {
+    std::memcpy(out, src, (size_t)(h * src_w * c));
     return;
   }
-  for (int64_t yy = 0; yy < edge; ++yy) {
+  const int64_t row_len = src_w * c;
+  for (int64_t yy = 0; yy < out_h; ++yy) {
     const int64_t ymin = bounds_v[yy * 2] - first, ymax = bounds_v[yy * 2 + 1];
     const int32_t* k = &kk_v[yy * ksize_v];
-    for (int64_t xx = 0; xx < src_w; ++xx) {
+    for (int64_t i = 0; i < row_len; ++i) {
       int32_t ss = 1 << (PRECISION_BITS - 1);
-      for (int64_t y = 0; y < ymax; ++y) ss += (int32_t)src[(y + ymin) * src_w + xx] * k[y];
-      out[yy * edge + xx] = clip8(ss);
+      for (int64_t y = 0; y < ymax; ++y) ss += (int32_t)src[(y + ymin) * row_len + i] * k[y];
+      out[yy * row_len + i] = clip8(ss);
     }
   }
+}
+
+// The pHash grid: PIL's resize((edge, edge), LANCZOS) of an [h, w] L image.
+void sd_resample_lanczos(const uint8_t* in, int64_t h, int64_t w, int64_t edge,
+                         uint8_t* out) {
+  sd_resample_lanczos_image(in, h, w, 1, edge, edge, out);
+}
+
+// What the thumbnailer does to a decoded image before its resize
+// (media/imgdecode.thumb_rgb): h x w pixels of `c` bytes each (`pixel`
+// bytes apart) → out [h, w, 3] RGB. kind 0: gray (band 0 to R, G and B,
+// PIL's L/LA to RGB); 1: I;16 (little-endian 16-bit gray, clipped at 255);
+// 2: RGB (the first three bands); 3: RGBA composited onto white, PIL's
+// paste with an L mask (Paste.c BLEND: DIV255(white·(255 − a) + c·a)).
+int64_t sd_thumb_rgb(const uint8_t* in, int64_t n, int64_t pixel, int64_t kind,
+                     uint8_t* out) {
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t* p = in + i * pixel;
+    uint8_t* o = out + i * 3;
+    switch (kind) {
+      case 0:
+        o[0] = o[1] = o[2] = p[0];
+        break;
+      case 1:
+        o[0] = o[1] = o[2] = p[1] ? 255 : p[0];
+        break;
+      case 2:
+        o[0] = p[0], o[1] = p[1], o[2] = p[2];
+        break;
+      case 3:
+        for (int b = 0; b < 3; ++b) {
+          const uint32_t t = 255u * (255u - p[3]) + (uint32_t)p[b] * p[3] + 128u;
+          o[b] = (uint8_t)(((t >> 8) + t) >> 8);
+        }
+        break;
+      default:
+        return 1;
+    }
+  }
+  return 0;
 }
 
 // GIF LZW: `data` (n bytes, the frame's sub-blocks joined) at minimum code

@@ -1,6 +1,6 @@
 // WebP's bitstreams as libwebp 1.6.0 decodes them for PIL's
-// WebPAnimDecoder (MODE_RGBA): VP8L (lossless) to RGB, the ALPH chunk
-// checked as libwebp checks it, VP8 key frames (lossy) to RGB through
+// WebPAnimDecoder (MODE_RGBA): VP8L (lossless) to RGB or RGBA, the ALPH
+// chunk checked and decoded as libwebp does, VP8 key frames (lossy) to RGB through
 // libwebp's loop filters, fancy upsampling and fixed-point YUV to RGB.
 // The plain version, with the same status codes, is media/webp.py; the
 // container walk there is shared by both.
@@ -1486,9 +1486,10 @@ struct Lossy {
 
 extern "C" {
 
-// A VP8L chunk's payload (to the end of the frame's bytes) → rgb[h][w][3].
-int64_t sd_webp_lossless(const uint8_t* data, int64_t n, int64_t width, int64_t height,
-                         uint8_t* rgb) {
+// A VP8L chunk's payload (to the end of the frame's bytes) → out[h][w][c]:
+// R, G, B, and with c = 4 the alpha the stream carries.
+int64_t sd_webp_lossless_bands(const uint8_t* data, int64_t n, int64_t width, int64_t height,
+                               int64_t c, uint8_t* out) {
   LBits br(data, n);
   if (br.read(8) != 0x2f) return LOSSLESS_HEADER;
   const int w = (int)br.read(14) + 1, h = (int)br.read(14) + 1;
@@ -1503,26 +1504,72 @@ int64_t sd_webp_lossless(const uint8_t* data, int64_t n, int64_t width, int64_t 
   int out_width = packed_width;
   inverse_transforms(transforms, data_px, out_width, h);
   for (size_t i = 0; i < (size_t)w * h; ++i) {
-    rgb[3 * i + 0] = (uint8_t)(data_px[i] >> 16);
-    rgb[3 * i + 1] = (uint8_t)(data_px[i] >> 8);
-    rgb[3 * i + 2] = (uint8_t)data_px[i];
+    uint8_t* o = out + c * i;
+    o[0] = (uint8_t)(data_px[i] >> 16);
+    o[1] = (uint8_t)(data_px[i] >> 8);
+    o[2] = (uint8_t)data_px[i];
+    if (c == 4) o[3] = (uint8_t)(data_px[i] >> 24);
   }
   return OK;
 }
 
 // An ALPH chunk's payload for a width x height frame: OK, or why libwebp
-// fails the frame on it.
-int64_t sd_webp_alpha(const uint8_t* data, int64_t n, int64_t width, int64_t height) {
+// fails the frame on it; with `out` (else null) the plane itself
+// [h][w], its rows unfiltered as libwebp's alpha decoder does (filters.c
+// HorizontalUnfilter, VerticalUnfilter, GradientUnfilter).
+int64_t sd_webp_alpha_plane(const uint8_t* data, int64_t n, int64_t width, int64_t height,
+                            uint8_t* out) {
   if (n <= 1) return ALPHA_HEADER;
-  const int method = data[0] & 3, pre = (data[0] >> 4) & 3, rsrv = data[0] >> 6;
+  const int method = data[0] & 3, filter = (data[0] >> 2) & 3, pre = (data[0] >> 4) & 3,
+            rsrv = data[0] >> 6;
   if (method > 1 || pre > 1 || rsrv) return ALPHA_HEADER;
-  if (method == 0) return n - 1 >= width * height ? OK : ALPHA_HEADER;
-  LBits br(data + 1, n - 1);
-  Lossless dec{br, true};
-  std::vector<Transform> transforms;
-  std::vector<uint32_t> px;
-  int packed_width;
-  return dec.image_stream((int)width, (int)height, true, transforms, px, packed_width);
+  const size_t total = (size_t)width * height;
+  std::vector<uint8_t> raw;
+  if (method == 0) {
+    if ((size_t)(n - 1) < total) return ALPHA_HEADER;
+    if (out == nullptr) return OK;
+    raw.assign(data + 1, data + 1 + total);
+  } else {
+    LBits br(data + 1, n - 1);
+    Lossless dec{br, true};
+    std::vector<Transform> transforms;
+    std::vector<uint32_t> px;
+    int packed_width;
+    const int st = dec.image_stream((int)width, (int)height, true, transforms, px,
+                                    packed_width);
+    if (st || out == nullptr) return st;
+    int out_width = packed_width;
+    inverse_transforms(transforms, px, out_width, (int)height);
+    raw.resize(total);
+    for (size_t i = 0; i < total; ++i) raw[i] = (uint8_t)(px[i] >> 8);
+  }
+  for (int64_t y = 0; y < height; ++y) {
+    const uint8_t* in = &raw[(size_t)(y * width)];
+    const uint8_t* prev = y ? out + (y - 1) * width : nullptr;
+    uint8_t* row = out + y * width;
+    if (filter == 0) {
+      std::memcpy(row, in, (size_t)width);
+    } else if (filter == 1 || prev == nullptr) {
+      uint8_t pred = (filter == 1 && prev != nullptr) ? prev[0] : 0;
+      for (int64_t i = 0; i < width; ++i) pred = row[i] = (uint8_t)(pred + in[i]);
+    } else if (filter == 2) {
+      for (int64_t i = 0; i < width; ++i) row[i] = (uint8_t)(prev[i] + in[i]);
+    } else {
+      int top = prev[0], top_left = top, left = top;
+      for (int64_t i = 0; i < width; ++i) {
+        top = prev[i];
+        const int g = left + top - top_left;
+        left = (uint8_t)(in[i] + ((g & ~0xff) == 0 ? g : g < 0 ? 0 : 255));
+        top_left = top;
+        row[i] = (uint8_t)left;
+      }
+    }
+  }
+  return OK;
+}
+
+int64_t sd_webp_alpha(const uint8_t* data, int64_t n, int64_t width, int64_t height) {
+  return sd_webp_alpha_plane(data, n, width, height, nullptr);
 }
 
 // A VP8 chunk's payload (to the end of the frame's bytes) → rgb[h][w][3].

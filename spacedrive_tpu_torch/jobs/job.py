@@ -8,8 +8,9 @@ package's, so a job row reads the same to both packages.
 
 The port keeps its own ``JOB_REGISTRY``, what a resume dispatches on. Its
 jobs carry the JAX package's ``NAME``s (``indexer``, ``file_identifier``,
-``object_validator``, ``near_dup_detector``); the two registries never
-meet. ``JobManager`` imports the port's four job classes before it
+``object_validator``, ``near_dup_detector``, ``media_processor``); the two
+registries never
+meet. ``JobManager`` imports the port's five job classes before it
 resumes anything, so a fresh process can ``cold_resume`` a library's job
 table.
 """
@@ -159,10 +160,14 @@ class JobState:
 
 
 class JobContext:
-    """What a running job sees: the library, its job id, progress."""
+    """What a running job sees: the library, its job id, progress, and
+    `services`, the manager's node-level actors and settings (the media
+    job's ``data_dir`` and thumbnailer) without jobs importing their owner."""
 
-    def __init__(self, library: Any, report_progress=None, job_id: Optional[bytes] = None):
+    def __init__(self, library: Any, report_progress=None, job_id: Optional[bytes] = None,
+                 services: Optional[dict] = None):
         self.library = library
+        self.services = services or {}
         self.job_id = job_id  # keys job_scratch rows
         self._report_progress = report_progress or (lambda **kw: None)
 

@@ -39,9 +39,10 @@ class AlreadyRunning(JobManagerError):
 
 
 def _load_job_classes() -> None:
-    """Register the port's four job classes (their modules register them
+    """Register the port's five job classes (their modules register them
     on import) before a report row is turned back into a job."""
     from ..locations import indexer_job  # noqa: F401
+    from ..media import processor  # noqa: F401
     from ..objects import dedup, identifier, validator  # noqa: F401
 
 
@@ -77,9 +78,10 @@ def _chain(jobs: List[StatefulJob]) -> List[Any]:
 
 class JobManager:
     def __init__(self, on_event: Optional[Callable[[dict], None]] = None,
-                 max_workers: int = MAX_WORKERS):
+                 max_workers: int = MAX_WORKERS, services: Optional[dict] = None):
         self.max_workers = max_workers
         self.on_event = on_event or (lambda e: None)
+        self.services = services or {}
         self.running: Dict[bytes, Worker] = {}
         self._tasks: Dict[bytes, asyncio.Task] = {}
         self._entries: Dict[bytes, _Entry] = {}
@@ -120,7 +122,7 @@ class JobManager:
 
     def _start(self, entry: _Entry) -> None:
         worker = Worker(entry.job, entry.report, entry.library, self.on_event,
-                        resume_state=entry.resume_state)
+                        resume_state=entry.resume_state, services=self.services)
         self.running[entry.report.id] = worker
         task = asyncio.get_running_loop().create_task(
             worker.run(), name=f"job/{entry.report.name}")

@@ -49,8 +49,9 @@ class Worker:
 
     def __init__(self, job: StatefulJob, report: JobReport, library: Any,
                  on_event: Callable[[dict], None],
-                 resume_state: Optional[JobState] = None):
+                 resume_state: Optional[JobState] = None, services: Optional[dict] = None):
         self.job = job
+        self.services = services or {}
         self.report = report
         self.library = library
         self.on_event = on_event
@@ -111,7 +112,8 @@ class Worker:
 
     async def _run_inner(self) -> JobStatus:
         r = self.report
-        ctx = JobContext(self.library, report_progress=self._progress, job_id=r.id)
+        ctx = JobContext(self.library, report_progress=self._progress, job_id=r.id,
+                         services=self.services)
         self._started_at = time.monotonic()
         r.status = JobStatus.RUNNING
         r.date_started = int(time.time())
@@ -227,6 +229,7 @@ class Worker:
     async def _cleanup_quietly(self, data) -> None:
         """Run the job's no-finalize teardown; never raises."""
         try:
-            await self.job.cleanup(JobContext(self.library, job_id=self.report.id), data)
+            await self.job.cleanup(JobContext(self.library, job_id=self.report.id,
+                                              services=self.services), data)
         except Exception:  # noqa: BLE001 (cleanup is best-effort)
             pass

@@ -3,17 +3,19 @@
 Port of ``spacedrive_tpu/locations/manager.py`` (upstream
 core/src/location/mod.rs): ``create_location`` writes the location row
 through sync and attaches indexer rules; ``scan_location`` chains
-``IndexerJob`` → ``FileIdentifierJob`` through the job builder
-(mod.rs:417-445); ``scan_location_sub_path`` rescans one directory and
+``IndexerJob`` → ``FileIdentifierJob`` (→ ``MediaProcessorJob`` with
+``with_media``) through the job builder (mod.rs:417-445); ``scan_location_sub_path`` rescans one directory and
 what lies under it; ``light_scan_location`` (``locations/shallow.py``)
 rescans one directory inline, the watcher's path. The chain's jobs pause,
 resume, cancel and cold-resume through ``jobs/manager.py``.
 
 The identifier's ``backend`` defaults to ``"cuda"`` (the hand-written
 BLAKE3 kernel on the card) and the chain is refused at once where CUDA is
-absent. ``with_media`` defaults to False here (True in the JAX package):
-the media processor is not ported yet, and asking for it raises rather
-than skipping it.
+absent. ``with_media`` defaults to False here (True in the JAX package)
+until the media plane's second half (audio, video, SVG, PDF) is ported;
+the media job's thumbnails need ``data_dir`` in the manager's services.
+The sub-path rescan chains no media job, in the JAX package as here, so it
+refuses ``with_media=True``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import time
 from typing import Optional, Sequence
 
 from ..jobs.manager import JobBuilder, JobManager
+from ..media.processor import MediaProcessorJob
 from ..objects.identifier import FileIdentifierJob
 from ..store import uuid_bytes
 from .indexer_job import IndexerJob
@@ -68,20 +71,15 @@ def create_location(library, path: str, indexer_rule_ids: Sequence[int] = (),
     return loc_id
 
 
-def _media(with_media: bool) -> None:
-    if with_media:
-        raise NotImplementedError(
-            "with_media=True: the media processor (MediaProcessorJob) is not "
-            "ported yet; scan with with_media=False")
-
-
 async def scan_location(jobs: JobManager, library, location_id: int,
                         backend: str = "cuda", with_media: bool = False) -> bytes:
-    """Full rescan: the indexer → identifier chain (location/mod.rs:417-445).
-    Returns the indexer's job id; ``jobs.wait_idle()`` waits for the chain."""
-    _media(with_media)
+    """Full rescan: the indexer → identifier chain, and the media processor
+    after it with `with_media` (location/mod.rs:417-445). Returns the
+    indexer's job id; ``jobs.wait_idle()`` waits for the chain."""
     builder = JobBuilder(IndexerJob(location_id=location_id)).queue_next(
         FileIdentifierJob(location_id=location_id, backend=backend))
+    if with_media:
+        builder = builder.queue_next(MediaProcessorJob(location_id=location_id))
     return await builder.spawn(jobs, library)
 
 
@@ -89,7 +87,10 @@ async def scan_location_sub_path(jobs: JobManager, library, location_id: int,
                                  sub_path: str, backend: str = "cuda",
                                  with_media: bool = False) -> bytes:
     """Rescan of one directory of a location and what lies under it."""
-    _media(with_media)
+    if with_media:
+        raise NotImplementedError(
+            "with_media=True: the sub-path rescan chains no media job, in the "
+            "JAX package as here; run MediaProcessorJob(sub_path=...) itself")
     builder = JobBuilder(IndexerJob(location_id=location_id, sub_path=sub_path)) \
         .queue_next(FileIdentifierJob(location_id=location_id, sub_path=sub_path,
                                       backend=backend))

@@ -7,7 +7,8 @@ touching a library, and with ``compute_cas_ids`` the CAS IDs of its
 images, the keys of their thumbnails. Those come from one
 ``staging.cas_ids_for_files`` call for the whole directory: K1 on the card
 for ``device="cuda"`` (the default), the plain version for ``"cpu"``.
-The ephemeral thumbnail queue itself waits for the port's media plane.
+``queue_ephemeral_thumbnails`` hands those images to a thumbnailer's
+ephemeral queue (``media/actor.py``).
 """
 
 from __future__ import annotations
@@ -68,3 +69,11 @@ def walk_ephemeral(path: str, with_hidden_files: bool = False,
         for k, i in enumerate(images):
             entries[i]["cas_id"] = ids.get(k)  # an unreadable file keeps None
     return entries
+
+
+async def queue_ephemeral_thumbnails(thumbnailer, entries: List[Dict]):
+    """The entries' images with a CAS ID as one ephemeral thumbnail batch
+    (actor.rs new_ephemeral_batch); returns the batch (await
+    ``batch.done``)."""
+    return await thumbnailer.new_ephemeral_batch(
+        [(e["cas_id"], e["path"]) for e in entries if e["cas_id"]])

@@ -23,7 +23,7 @@ import struct
 
 import numpy as np
 
-from .imgdecode import GIF_SIGNATURES, UnsupportedImage, check_size, l24
+from .imgdecode import GIF_SIGNATURES, Decoded, UnsupportedImage, check_size
 
 # (first row, row step) of the four passes of an interlaced frame.
 INTERLACE = ((0, 8), (4, 8), (2, 4), (1, 2))
@@ -54,8 +54,10 @@ def _palette(data: bytes, pos: int, flags: int):
     return np.frombuffer(data, np.uint8, size, pos).reshape(-1, 3), pos + size
 
 
-def decode_luma(data: bytes, native: bool) -> np.ndarray:
-    """GIF bytes → [h, w] uint8, PIL's ``convert("L")`` of the first frame."""
+def decode(data: bytes, native: bool) -> Decoded:
+    """GIF bytes → the first frame on its screen, as PIL loads it: "P"
+    (its palette) or, without a palette, "L"; outside the frame the
+    transparent index, else 0."""
     if len(data) < 13 or data[:6] not in GIF_SIGNATURES:
         raise UnsupportedImage("not a GIF")
     width, height, flags = struct.unpack_from("<HHB", data, 6)
@@ -107,10 +109,10 @@ def decode_luma(data: bytes, native: bool) -> np.ndarray:
     canvas = np.full((sh, sw), transparency or 0, np.uint8)
     canvas[y0:y0 + fh, x0:x0 + fw] = frame
     if palette is None:
-        return canvas
+        return Decoded(canvas, "L")
     if int(canvas.max()) >= len(palette):
         raise UnsupportedImage("GIF index past its palette")
-    return l24(palette)[canvas]
+    return Decoded(canvas, "P", palette)
 
 
 LZW_MESSAGES = {1: "truncated GIF image data", 2: "corrupt GIF image data"}

@@ -41,9 +41,8 @@ What PIL does, and this module with it:
 - LANCZOS: separable, support 3 scaled by the reduction factor, weights
   normalised in double and rounded to 22-bit fixed point, a horizontal pass
   rounded and clipped to uint8, then the vertical pass; a side already 32
-  px long is not resampled. Each pass here is one float64 matrix product of
-  integer values: every product is below 2**30 and every sum below 2**53,
-  so BLAS carries it exactly in any order.
+  px long is not resampled. The plain passes sum each output's taps in
+  int64, as Resample.c sums them in int32.
 
 ``native=False`` runs the plain versions of the native passes
 (``png_unfilter_plain``, ``l24``, ``resize_lanczos``,
@@ -60,7 +59,7 @@ import functools
 import math
 import struct
 import zlib
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -121,48 +120,102 @@ def decode_grid(data: bytes, *, native: bool = True) -> np.ndarray:
     return resize_lanczos(luma).astype(np.float32)
 
 
+class Decoded(NamedTuple):
+    """A decoded image as its decoder holds it: `pixels` in PIL's `mode`
+    ("1", "L", "LA", "I;16", "P", "RGB", "RGBA"). "1" and "L" are [h, w]
+    uint8 (a "1" pixel is 0 or 255, as PIL stores it), "LA" [h, w, 2],
+    "I;16" [h, w] uint16, "P" [h, w] indices into `palette` ([n, 3] RGB);
+    "RGB" and "RGBA" [h, w, c] bytes with R, G, B (and A) at the byte
+    offsets `order` of a pixel (BMP's BGR, 16-bit samples' high bytes)."""
+    pixels: np.ndarray
+    mode: str
+    palette: Optional[np.ndarray] = None
+    order: Tuple[int, ...] = (0, 1, 2, 3)
+
+
 def decode_luma(data: bytes, *, native: bool = True) -> np.ndarray:
     """Image bytes → [h, w] uint8, PIL's ``convert("L")``. The format is
     the one the bytes' signature names, as PIL finds it; the file's name
-    plays no part."""
+    plays no part. A WebP's alpha plane is checked but not built."""
+    return to_luma(decode(data, native=native, alpha=False), native)
+
+
+def decode_image(data: bytes, *, native: bool = True) -> Tuple[np.ndarray, str]:
+    """Image bytes → (pixels, mode): PIL's mode of ``Image.open(...)
+    .load()`` and its pixels, "RGB" and "RGBA" in that band order, "LA"
+    [h, w, 2], "I;16" [h, w] uint16, "1" and "L" [h, w]; a "P" image's
+    pixels are its palette's colours [h, w, 3] (the lookup PIL's
+    ``convert`` makes; the indices are not kept)."""
+    d = decode(data, native=native)
+    if d.mode == "P":
+        return d.palette[d.pixels], "P"
+    if d.mode in ("RGB", "RGBA"):
+        n = len(d.mode)
+        if d.pixels.shape[-1] == n and tuple(d.order[:n]) == tuple(range(n)):
+            return d.pixels, d.mode
+        return d.pixels[..., list(d.order[:n])], d.mode
+    return d.pixels, d.mode
+
+
+def decode(data: bytes, *, native: bool = True, alpha: bool = True) -> Decoded:
+    """Image bytes → ``Decoded``; raises UnsupportedImage. `alpha` False
+    lets a WebP skip its alpha plane (``webp.decode_image``), as the luma
+    path drops it; the other formats hold alpha as they decode."""
     if data[:8] == PNG_SIGNATURE:
-        return _png_luma(data, native)
+        return _png_decode(data, native)
     if data[:2] == b"BM":
-        return _bmp_luma(data, native)
+        return _bmp_decode(data, native)
     if data[:3] == JPEG_SIGNATURE:
-        return _jpeg_luma(data, native)
+        return _jpeg_decode(data, native)
     if data[:6] in GIF_SIGNATURES:
         from . import gif
-        return gif.decode_luma(data, native)
+        return gif.decode(data, native)
     if data[:4] == ICO_SIGNATURE:
-        return _ico_luma(data, native)
+        return _ico_decode(data, native)
     if data[:4] in TIFF_SIGNATURES:
         from . import tiff
-        return tiff.decode_luma(data, native)
+        return tiff.decode(data, native)
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP" and data[12:16] in WEBP_CHUNKS:
         from . import webp
-        return webp.decode_luma(data, native)
+        pixels, mode = webp.decode_image(data, native, alpha)
+        return Decoded(pixels, mode)
     if data[4:8] == b"ftyp":
         raise UnsupportedImage("HEIF or AVIF (an ISO BMFF file): the port decodes neither "
                                "HEVC nor AV1")
     raise UnsupportedImage("not a PNG, BMP, JPEG, GIF, ICO, TIFF or WebP")
 
 
-def _jpeg_luma(data: bytes, native: bool) -> np.ndarray:
+def to_luma(d: Decoded, native: bool) -> np.ndarray:
+    """PIL's ``convert("L")`` of a decoded image: L24 of the colour, alpha
+    dropped, I;16 clipped at 255."""
+    if d.mode in ("1", "L"):
+        return d.pixels
+    if d.mode == "LA":
+        return d.pixels[..., 0].copy()
+    if d.mode == "I;16":
+        return np.minimum(d.pixels, 255).astype(np.uint8)
+    if d.mode == "P":
+        return l24(d.palette)[d.pixels]
+    return _rgb_to_l(d.pixels, d.order[:3], native)
+
+
+def _jpeg_decode(data: bytes, native: bool) -> Decoded:
     from . import jpeg
     if native:
         from .. import native as plane
         px = plane.jpeg_decode(data)
     else:
         px = jpeg.decode_plain(data)
-    return px if px.ndim == 2 else _rgb_to_l(px, (0, 1, 2), native)
+    return Decoded(px, "L" if px.ndim == 2 else "RGB")
 
 
 def _rgb_to_l(pixels: np.ndarray, order, native: bool) -> np.ndarray:
     """[h, w, c] pixels with R, G, B at channel offsets `order` → L."""
+    if pixels.strides[0] < 0:  # bottom-up rows (BMP, ICO): a view
+        return _rgb_to_l(pixels[::-1], order, native)[::-1]
     if native:
         from .. import native as plane
-        return plane.luma(pixels, order)
+        return plane.luma(pixels, tuple(order))
     return l24(pixels[..., list(order)])
 
 
@@ -217,7 +270,7 @@ def _png_chunks(data: bytes):
         raise UnsupportedImage("truncated PNG: no IDAT")
 
 
-def _png_luma(data: bytes, native: bool) -> np.ndarray:
+def _png_decode(data: bytes, native: bool) -> Decoded:
     header, palette, idat = None, None, []
     for ctype, payload in _png_chunks(data):
         if header is None and ctype != b"IHDR":
@@ -266,17 +319,17 @@ def _png_luma(data: bytes, native: bool) -> np.ndarray:
         else:
             pix[y0::dy, x0::dx] = sub
     if ctype == 0:
-        if depth == 16:  # I;16 to L clips, PIL's I16_L
-            return np.where(pix[..., 0] > 0, 255, pix[..., 1]).astype(np.uint8)
-        return pix * np.uint8(GRAY_SCALE[depth])
+        if depth == 16:  # I;16B
+            return Decoded((pix[..., 0].astype(np.uint16) << 8) | pix[..., 1], "I;16")
+        return Decoded(pix * np.uint8(GRAY_SCALE[depth]), "1" if depth == 1 else "L")
     if ctype == 3:
         if int(pix.max()) >= len(palette):
             raise UnsupportedImage("palette index past PLTE")
-        return l24(palette)[pix]
-    if ctype == 4:  # LA, or LA;16B unpacked to RGBA: the gray's high byte
-        return pix[..., 0].copy()
+        return Decoded(pix, "P", palette)
+    if ctype == 4:  # LA, or LA;16B unpacked to RGBA: the high bytes
+        return Decoded(pix, "LA") if depth == 8 else Decoded(pix, "RGBA", order=(0, 0, 0, 2))
     step = depth // 8  # high bytes of RGB;16B and RGBA;16B
-    return _rgb_to_l(pix, (0, step, 2 * step), native)
+    return Decoded(pix, "RGB" if ctype == 2 else "RGBA", order=(0, step, 2 * step, 3 * step))
 
 
 def _png_samples(raw: bytes, w: int, h: int, channels: int, depth: int,
@@ -343,7 +396,7 @@ def png_unfilter_plain(raw: bytes, h: int, rowbytes: int, bpp: int) -> np.ndarra
 # -- BMP ---------------------------------------------------------------------
 
 
-def _bmp_luma(data: bytes, native: bool) -> np.ndarray:
+def _bmp_decode(data: bytes, native: bool) -> Decoded:
     if len(data) < 18:
         raise UnsupportedImage("truncated BMP header")
     offset, header_size = struct.unpack_from("<II", data, 10)
@@ -366,22 +419,21 @@ def _bmp_luma(data: bytes, native: bool) -> np.ndarray:
     if offset < 14 + header_size or offset + stride * h > len(data):
         raise UnsupportedImage("truncated BMP pixel data")
     rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
+    if not top_down:
+        rows = rows[::-1]
     if bits == 8:
         table = np.frombuffer(data, np.uint8, 4 * colors, 14 + header_size).reshape(-1, 4)
         idx = rows[:, :w]
         if int(idx.max()) >= colors:
             raise UnsupportedImage("BMP palette index past its table")
-        luma = l24(table[:, 2::-1])[idx]
-    else:
-        pixels = rows[:, :w * (bits // 8)].reshape(h, w, bits // 8)
-        luma = _rgb_to_l(pixels, (2, 1, 0), native)
-    return luma if top_down else luma[::-1]
+        return Decoded(idx, "P", np.ascontiguousarray(table[:, 2::-1]))
+    return Decoded(rows[:, :w * (bits // 8)].reshape(h, w, bits // 8), "RGB", order=(2, 1, 0))
 
 
 # -- ICO ---------------------------------------------------------------------
 
 
-def _ico_luma(data: bytes, native: bool) -> np.ndarray:
+def _ico_decode(data: bytes, native: bool) -> Decoded:
     """The frame PIL's IcoImagePlugin takes: the largest by width × height,
     among those the least colour depth, first in the directory among
     equals; a PNG frame through the PNG path, a DIB frame below."""
@@ -400,17 +452,18 @@ def _ico_luma(data: bytes, native: bool) -> np.ndarray:
     _, _, bpp, size, offset = entries[0]
     frame = data[offset:]
     if frame[:8] == PNG_SIGNATURE:
-        return _png_luma(frame, native)
-    return _ico_dib_luma(data, offset, bpp, size, native)
+        return _png_decode(frame, native)
+    return _ico_dib_decode(data, offset, bpp, size)
 
 
-def _ico_dib_luma(data: bytes, offset: int, entry_bpp: int, entry_size: int,
-                  native: bool) -> np.ndarray:
+def _ico_dib_decode(data: bytes, offset: int, entry_bpp: int, entry_size: int) -> Decoded:
     """A DIB frame (header, palette, XOR bitmap of half the header's height,
-    AND mask), as PIL's DibImageFile reads it and ``convert("RGBA")``
-    gives it: L24 of each pixel's colour. Uncompressed 1, 4, 8, 24 and 32
-    bits; PIL reads a grey palette as raw L or 1 bytes, which is right only
-    at 8 bits and 1 bit, so other such palettes are refused."""
+    AND mask), as PIL's IcoFile.frame reads it: ``convert("RGBA")`` of the
+    DIB, its alpha from the AND mask ("1;I": a set bit is transparent), or
+    at 32 bits in the directory from every 4th byte of the pixel data.
+    Uncompressed 1, 4, 8, 24 and 32 bits; PIL reads a grey palette as raw L
+    or 1 bytes, which is right only at 8 bits and 1 bit, so other such
+    palettes are refused."""
     if offset + 40 > len(data):
         raise UnsupportedImage("truncated ICO frame")
     header_size, w, h_raw, planes, bits, compression, _, _, _, colors = struct.unpack_from(
@@ -438,6 +491,7 @@ def _ico_dib_luma(data: bytes, offset: int, entry_bpp: int, entry_size: int,
         raise UnsupportedImage("truncated ICO frame pixels")
     if entry_bpp == 32:
         mask_end = pos + w * h * 4  # PIL reads the alpha bytes from here
+        mask_bytes = 0
     else:
         mask_bytes = -(-w // 32) * 32 * h // 8
         mask_end = offset + entry_size
@@ -445,17 +499,23 @@ def _ico_dib_luma(data: bytes, offset: int, entry_bpp: int, entry_size: int,
             raise UnsupportedImage("ICO frame AND mask before the file")
     if mask_end > len(data):
         raise UnsupportedImage("truncated ICO frame mask")
-    rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(h, stride)
-    if bits > 8:  # bottom-up rows
-        pixels = rows[:, :w * (bits // 8)].reshape(h, w, bits // 8)
-        return _rgb_to_l(pixels, (2, 1, 0), native)[::-1]
-    rows = rows[::-1]
-    per = 8 // bits
-    shifts = (8 - bits) - bits * np.arange(per, dtype=np.uint8)
-    idx = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(h, -1)[:, :w]
-    if int(idx.max()) >= colors:
-        raise UnsupportedImage("ICO frame palette index past its table")
-    return l24(np.ascontiguousarray(table))[idx]
+    rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(h, stride)[::-1]
+    if entry_bpp == 32:
+        alpha = np.frombuffer(data, np.uint8, w * h * 4, pos)[3::4].reshape(h, w)[::-1]
+    else:
+        mask = np.frombuffer(data, np.uint8, mask_bytes, mask_end - mask_bytes)
+        bits_ = np.unpackbits(mask.reshape(h, -1), axis=1)[::-1, :w]
+        alpha = np.where(bits_ == 1, 0, 255).astype(np.uint8)
+    if bits > 8:  # bottom-up rows of B, G, R (and X)
+        colour = rows[:, :w * (bits // 8)].reshape(h, w, bits // 8)[..., 2::-1]
+    else:
+        per = 8 // bits
+        shifts = (8 - bits) - bits * np.arange(per, dtype=np.uint8)
+        idx = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(h, -1)[:, :w]
+        if int(idx.max()) >= colors:
+            raise UnsupportedImage("ICO frame palette index past its table")
+        colour = np.ascontiguousarray(table)[idx]
+    return Decoded(np.concatenate([colour, alpha[..., None]], axis=-1), "RGBA")
 
 
 # -- LANCZOS resample --------------------------------------------------------
@@ -473,46 +533,107 @@ def _lanczos(x: float) -> float:
     return 0.0
 
 
-@functools.lru_cache(maxsize=1024)
-def lanczos_coeffs(in_size: int, out_size: int = GRID_EDGE) -> np.ndarray:
-    """[out_size, in_size] float64 of PIL's fixed-point LANCZOS weights
-    (Resample.c ``precompute_coeffs`` + ``normalize_coeffs_8bpc``): integer
-    values, zero outside each output's taps. Cached, read-only."""
+def resize_lanczos(luma: np.ndarray, edge: int = GRID_EDGE) -> np.ndarray:
+    """[h, w] uint8 → [edge, edge] uint8, PIL's ``resize((edge, edge),
+    LANCZOS)`` on an L image."""
+    return resize_image(luma, (edge, edge))
+
+
+# -- thumbnails: RGB at any size ---------------------------------------------
+
+# thumb_rgb's kinds, as csrc/imgdec.cpp's sd_thumb_rgb numbers them.
+THUMB_KINDS = {"1": 0, "L": 0, "LA": 0, "I;16": 1, "RGB": 2, "P": 2, "RGBA": 3}
+
+
+def thumb_rgb(pixels: np.ndarray, mode: str, *, native: bool = True) -> np.ndarray:
+    """``decode_image``'s (pixels, mode) → [h, w, 3] uint8, what the JAX
+    ``encode_webp`` hands its resize: an RGBA image pasted onto white with
+    its alpha as the mask (PIL's Paste.c BLEND,
+    ``DIV255(255·(255 − a) + c·a)``), every other mode through PIL's
+    ``convert("RGB")`` (gray replicated, LA's alpha dropped, I;16 clipped at
+    255, a palette's colours as they are)."""
+    kind = THUMB_KINDS.get(mode)
+    if kind is None:
+        raise ValueError(f"thumb_rgb: mode {mode!r}")
+    if native:
+        from .. import native as plane
+        return plane.thumb_rgb(pixels, kind)
+    return thumb_rgb_plain(pixels, kind)
+
+
+def thumb_rgb_plain(pixels: np.ndarray, kind: int) -> np.ndarray:
+    """Plain version of ``native.thumb_rgb``."""
+    if kind == 0:
+        gray = pixels if pixels.ndim == 2 else pixels[..., 0]
+        return np.repeat(gray[..., None], 3, axis=-1)
+    if kind == 1:
+        return np.repeat(np.minimum(pixels, 255).astype(np.uint8)[..., None], 3, axis=-1)
+    if kind == 2:
+        return np.ascontiguousarray(pixels[..., :3])
+    a = pixels[..., 3:4].astype(np.uint32)
+    t = 255 * (255 - a) + pixels[..., :3].astype(np.uint32) * a + 128
+    return (((t >> 8) + t) >> 8).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=64)
+def lanczos_taps(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """PIL's fixed-point LANCZOS weights for one side, tap by tap: ([out]
+    int64 first input of each output, [out, ksize] int64 weights, zero past
+    each output's taps; Resample.c ``precompute_coeffs`` and
+    ``normalize_coeffs_8bpc``). Cached, read-only: out × ksize values, where
+    a dense [out, in] matrix would take out × in at a camera's widths."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = LANCZOS_SUPPORT * filterscale
     ss = 1.0 / filterscale
-    out = np.zeros((out_size, in_size), np.float64)
+    ksize = int(math.ceil(support)) * 2 + 1
+    first = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.int64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        weights = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        k = [_lanczos((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         total = 0.0
-        for wgt in weights:
+        for wgt in k:
             total += wgt
-        for x, wgt in enumerate(weights):
+        first[xx] = xmin
+        for x, wgt in enumerate(k):
             if total != 0.0:
                 wgt /= total
             fixed = wgt * (1 << PRECISION_BITS)
-            out[xx, xmin + x] = int(fixed - 0.5) if wgt < 0 else int(fixed + 0.5)
-    out.flags.writeable = False
-    return out
+            weights[xx, x] = int(fixed - 0.5) if wgt < 0 else int(fixed + 0.5)
+    first.flags.writeable = False
+    weights.flags.writeable = False
+    return first, weights
 
 
-def _clip8(acc: np.ndarray) -> np.ndarray:
-    """PIL's clip8 of the rounded fixed-point sums."""
-    shifted = np.floor((acc + (1 << (PRECISION_BITS - 1))) / (1 << PRECISION_BITS))
-    return np.clip(shifted, 0, 255)
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8bpc pass of PIL's LANCZOS along `axis` of an int64 image."""
+    first, weights = lanczos_taps(img.shape[axis], out_size)
+    n = img.shape[axis]
+    acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1:],
+                  1 << (PRECISION_BITS - 1), np.int64)
+    shape = [1] * img.ndim
+    shape[axis] = out_size
+    for k in range(weights.shape[1]):
+        w = weights[:, k]
+        if not w.any():
+            continue
+        idx = np.minimum(first + k, n - 1)  # a zero weight past the side
+        acc += np.take(img, idx, axis=axis) * w.reshape(shape)
+    return np.clip(acc >> PRECISION_BITS, 0, 255)
 
 
-def resize_lanczos(luma: np.ndarray, edge: int = GRID_EDGE) -> np.ndarray:
-    """[h, w] uint8 → [edge, edge] uint8, PIL's ``resize((edge, edge),
-    LANCZOS)`` on an L image: horizontal pass, then vertical."""
-    h, w = luma.shape
-    out = luma.astype(np.float64)
-    if w != edge:
-        out = _clip8(out @ lanczos_coeffs(w, edge).T)
-    if h != edge:
-        out = _clip8(lanczos_coeffs(h, edge) @ out)
-    return out.astype(np.uint8)
+def resize_image(pixels: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """[h, w] or [h, w, c] uint8 → (width, height) `size`, PIL's
+    ``resize(size, LANCZOS)`` on an 8-bit image (c bands resampled alike):
+    the horizontal pass, then the vertical; a side that keeps its length is
+    not resampled. Plain version of ``native.resample_image``."""
+    out_w, out_h = size
+    img = pixels.astype(np.int64)
+    if img.shape[1] != out_w:
+        img = _resample_axis(img, out_w, 1)
+    if img.shape[0] != out_h:
+        img = _resample_axis(img, out_h, 0)
+    return img.astype(np.uint8)

@@ -53,8 +53,7 @@ import zlib
 
 import numpy as np
 
-from .imgdecode import (GRAY_SCALE, TIFF_SIGNATURES, UnsupportedImage, _rgb_to_l, check_size,
-                        l24)
+from .imgdecode import GRAY_SCALE, TIFF_SIGNATURES, Decoded, UnsupportedImage, check_size
 
 # Status codes of a strip or tile: must match `enum Status` in
 # csrc/tiffdec.cpp. The rest are the parse's own.
@@ -148,9 +147,10 @@ def _open_info() -> dict:
 
 OPEN_INFO = _open_info()
 # EXIF orientation → the numpy steps of PIL's exif_transpose.
+# Rows and columns only: a pixel's bands stay as they are.
 ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
-          5: lambda a: a.T, 6: lambda a: a.T[:, ::-1], 7: lambda a: a.T[::-1, ::-1],
-          8: lambda a: a.T[::-1]}
+          5: lambda a: a.swapaxes(0, 1), 6: lambda a: a.swapaxes(0, 1)[:, ::-1],
+          7: lambda a: a.swapaxes(0, 1)[::-1, ::-1], 8: lambda a: a.swapaxes(0, 1)[::-1]}
 
 
 def _refuse(code: int):
@@ -224,8 +224,9 @@ def _one(big: bool, tags: dict, tag: int, default=None) -> int:
     return values[0]
 
 
-def decode_luma(data: bytes, native: bool) -> np.ndarray:
-    """TIFF bytes → [h, w] uint8, PIL's ``convert("L")`` of the first IFD."""
+def decode(data: bytes, native: bool) -> Decoded:
+    """TIFF bytes → the first IFD as PIL loads it (``Decoded``), turned by
+    its Orientation tag as PIL's TIFF load turns it."""
     big, tags = _ifd(data)
     w, h = _one(big, tags, WIDTH), _one(big, tags, LENGTH)
     compression = _one(big, tags, COMPRESSION_TAG, 1)
@@ -287,12 +288,14 @@ def decode_luma(data: bytes, native: bool) -> np.ndarray:
         _refuse(PLANAR)
     samples = _samples(data, big, tags, w, h, spp, depth, planar == 2 and spp > 1, route,
                        predictor, native)
-    luma = _to_l(samples, kind, depth, big, tags, native)
+    image = _to_image(samples, kind, depth, big, tags, extra)
     kind_, count, raw = tags.get(ORIENTATION, (3, 0, b""))
     orientation = _ints(big, tags, ORIENTATION) if kind_ in INT_TYPES and count == 1 and raw \
         else (1,)
     turn = ORIENT.get(orientation[0])
-    return luma if turn is None else np.ascontiguousarray(turn(luma))
+    if turn is None:
+        return image
+    return image._replace(pixels=np.ascontiguousarray(turn(image.pixels)))
 
 
 def _raw_planar_ok(photometric: int, kind: str, depth: int, spp: int, extra: tuple) -> bool:
@@ -405,9 +408,13 @@ def _inflate(src: bytes, size: int) -> bytes:
     return raw
 
 
-def _to_l(samples: np.ndarray, kind: str, depth: int, big: bool, tags: dict,
-          native: bool) -> np.ndarray:
-    """[planes, h, rowbytes] rows → [h, w] L by the mode's conversion."""
+def _to_image(samples: np.ndarray, kind: str, depth: int, big: bool, tags: dict,
+              extra: tuple) -> Decoded:
+    """[planes, h, rowbytes] rows → the image in PIL's mode for the kind:
+    "L" (gray, scaled or inverted), "I;16", "LA", "P" (PA too: its alpha
+    never reaches RGB), "RGBA" (unassociated alpha: PIL's table gives RGBA
+    for 4 samples with no extra or a first extra sample of 2 or 999;
+    associated alpha unpremultiplied) or "RGB"."""
     planes, h, _ = samples.shape
     w = _one(big, tags, WIDTH)
     if depth < 8:
@@ -425,27 +432,30 @@ def _to_l(samples: np.ndarray, kind: str, depth: int, big: bool, tags: dict,
     if kind in ("gray", "grayi"):
         gray = values if depth < 8 else values[..., 0]
         luma = gray * np.uint8(GRAY_SCALE[depth])
-        return 255 - luma if kind == "grayi" else luma
-    if kind == "i16":  # I;16 to L clips at 255
-        return np.where(hi[..., 0] > 0, 255, lo[..., 0]).astype(np.uint8)
+        return Decoded(255 - luma if kind == "grayi" else luma, "L")
+    if kind == "i16":
+        return Decoded((hi[..., 0].astype(np.uint16) << 8) | lo[..., 0], "I;16")
     if kind == "la":
-        return values[..., 0].copy()
+        return Decoded(values[..., :2], "LA")
     if kind == "pal":
         index = values if depth < 8 else values[..., 0]
         cmap = np.array(_ints(big, tags, COLORMAP, ()), np.int64)
         if not cmap.size or cmap.size % 3 or int(index.max()) >= cmap.size // 3:
             _refuse(PALETTE)
         table = (cmap.reshape(3, -1).T >> 8).astype(np.uint8)
-        return l24(table)[index]
+        return Decoded(index, "P", table)
     if kind == "rgba_p":
         rgb = hi[..., :3] if depth == 16 else values[..., :3]
         alpha = (hi[..., 3] if depth == 16 else values[..., 3]).astype(np.int32)[..., None]
         un = np.minimum(rgb.astype(np.int32) * 255 // np.maximum(alpha, 1), 255)
-        return l24(np.where(alpha == 0, 0, np.where(alpha == 255, rgb, un)).astype(np.uint8))
+        colour = np.where(alpha == 0, 0, np.where(alpha == 255, rgb, un)).astype(np.uint8)
+        return Decoded(np.concatenate([colour, alpha.astype(np.uint8)], axis=-1), "RGBA")
+    mode = "RGBA" if values.shape[-1] >= 4 * (depth // 8) and \
+        (not extra or extra[0] in (2, 999)) else "RGB"
     if depth == 8:
-        return _rgb_to_l(values, (0, 1, 2), native)
+        return Decoded(values, mode, order=(0, 1, 2, 3))
     high = 0 if big else 1  # each sample's high byte
-    return _rgb_to_l(values, (high, high + 2, high + 4), native)
+    return Decoded(values, mode, order=(high, high + 2, high + 4, high + 6))
 
 
 def chunk_plain(src: bytes, route: int, rows: int, rowbytes: int, predictor: int,

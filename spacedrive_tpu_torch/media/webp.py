@@ -25,8 +25,8 @@ image. This module gives that L plane, bit for bit:
   upsampling of the 4:2:0 chroma and its fixed-point YUV to RGB, no
   dithering;
 - ``ALPH`` (raw, or a headerless VP8L stream, any of the four filters),
-  validated as libwebp validates it (the alpha values themselves do not
-  reach L).
+  validated as libwebp validates it; the alpha values do not reach L, and
+  ``decode_image`` unfilters them where PIL's mode is RGBA.
 
 Refused with a reason from ``REASONS``: what libwebp refuses, and nothing
 else. ``native.webp_lossless``, ``native.webp_alpha`` and
@@ -42,7 +42,7 @@ import struct
 import numpy as np
 
 from . import webp_tables as T
-from .imgdecode import UnsupportedImage, _rgb_to_l, check_size
+from .imgdecode import UnsupportedImage, check_size
 
 # Status codes: must match `enum Status` in csrc/webpdec.cpp.
 OK = 0
@@ -324,38 +324,52 @@ class _Demux:
         return f, payload, alpha
 
 
-def decode_luma(data: bytes, native: bool) -> np.ndarray:
-    """WebP bytes → [h, w] uint8, PIL's ``convert("L")`` of frame 0 on
-    its canvas."""
+def decode_image(data: bytes, native: bool, alpha: bool = True) -> tuple:
+    """WebP bytes → (pixels, mode) as PIL's ``Image.open(...).load()``
+    gives frame 0 on its canvas: "RGBA" ([h, w, 4]) where the container
+    says the image has alpha (the canvas outside the frame transparent
+    black), else "RGB" ([h, w, 3], the canvas black). `alpha` False skips
+    the alpha plane (the luma path reads R, G and B only)."""
     demux = _Demux(data)
     cw, ch = demux.canvas
     check_size(cw, ch)
-    frame, payload, alpha = demux.first_frame()
+    frame, payload, alph = demux.first_frame()
     lossless = frame.image[2]
+    bands = 4 if alpha and demux.flags & ALPHA_FLAG else 3
+    plane = None
     if native:
-        from .. import native as plane
+        from .. import native as plane_lib
         if lossless:
-            status, rgb = plane.webp_lossless(payload, frame.width, frame.height)
+            status, px = plane_lib.webp_lossless(payload, frame.width, frame.height, bands)
         else:
-            status = plane.webp_alpha(alpha, frame.width, frame.height) if alpha is not None \
-                else OK
+            status = OK
+            if alph is not None and bands == 4:
+                status, plane = plane_lib.webp_alpha(alph, frame.width, frame.height, plane=True)
+            elif alph is not None:
+                status = plane_lib.webp_alpha(alph, frame.width, frame.height)
             if not status:
-                status, rgb = plane.webp_lossy(payload, frame.width, frame.height)
+                status, px = plane_lib.webp_lossy(payload, frame.width, frame.height)
     else:
         if lossless:
-            status, rgb = lossless_plain(payload, frame.width, frame.height)
+            status, px = lossless_plain(payload, frame.width, frame.height, bands)
         else:
-            status = alpha_plain(alpha, frame.width, frame.height) if alpha is not None else OK
+            status = OK
+            if alph is not None:
+                status, plane = alpha_plane_plain(alph, frame.width, frame.height,
+                                                  plane=bands == 4)
             if not status:
-                status, rgb = lossy_plain(payload, frame.width, frame.height)
+                status, px = lossy_plain(payload, frame.width, frame.height)
     if status:
         _refuse(status)
-    luma = _rgb_to_l(rgb, (0, 1, 2), native)
+    if bands == 4 and not lossless:
+        a = plane if plane is not None else np.full(px.shape[:2], 255, np.uint8)
+        px = np.concatenate([px, a[..., None]], axis=-1)
+    mode = "RGBA" if bands == 4 else "RGB"
     if (frame.x, frame.y, frame.width, frame.height) == (0, 0, cw, ch):
-        return luma
-    canvas = np.zeros((ch, cw), np.uint8)
-    canvas[frame.y:frame.y + frame.height, frame.x:frame.x + frame.width] = luma
-    return canvas
+        return px, mode
+    canvas = np.zeros((ch, cw, bands), np.uint8)
+    canvas[frame.y:frame.y + frame.height, frame.x:frame.x + frame.width] = px
+    return canvas, mode
 
 
 # -- VP8L --------------------------------------------------------------------
@@ -772,9 +786,10 @@ def _inverse_transforms(transforms: list, data: np.ndarray) -> np.ndarray:
     return data
 
 
-def lossless_plain(payload: bytes, width: int, height: int) -> tuple:
+def lossless_plain(payload: bytes, width: int, height: int, bands: int = 3) -> tuple:
     """Plain version of ``native.webp_lossless``: a VP8L chunk's payload
-    (to the fragment's end) → (status, [h, w, 3] uint8 RGB or None)."""
+    (to the fragment's end) → (status, [h, w, bands] uint8 RGB(A) or
+    None)."""
     br = _LBits(payload)
     try:
         if br.read(8) != 0x2F:
@@ -787,25 +802,75 @@ def lossless_plain(payload: bytes, width: int, height: int) -> tuple:
     except _Refused as r:
         return r.code, None
     argb = _inverse_transforms(transforms, data)
-    rgb = np.stack([(argb >> 16) & 0xFF, (argb >> 8) & 0xFF, argb & 0xFF], axis=-1)
+    shifts = (16, 8, 0, 24)[:bands]
+    rgb = np.stack([(argb >> s) & 0xFF for s in shifts], axis=-1)
     return OK, rgb.astype(np.uint8)
 
 
 def alpha_plain(alpha: bytes, width: int, height: int) -> int:
-    """Plain version of ``native.webp_alpha``: an ALPH payload checked as
-    libwebp's ALPHInit and alpha decode check it; returns a status."""
+    """Plain version of ``native.webp_alpha`` without the plane: an ALPH
+    payload checked as libwebp's ALPHInit and alpha decode check it;
+    returns a status."""
+    return alpha_plane_plain(alpha, width, height, plane=False)[0]
+
+
+def alpha_plane_plain(alpha: bytes, width: int, height: int, plane: bool = True) -> tuple:
+    """Plain version of ``native.webp_alpha``: (status, the [h, w] uint8
+    alpha plane with its rows unfiltered as libwebp's alpha decoder does,
+    or None)."""
     if len(alpha) <= 1:
-        return ALPHA_HEADER
-    method, pre, rsrv = alpha[0] & 3, (alpha[0] >> 4) & 3, alpha[0] >> 6
+        return ALPHA_HEADER, None
+    method, filt = alpha[0] & 3, (alpha[0] >> 2) & 3
+    pre, rsrv = (alpha[0] >> 4) & 3, alpha[0] >> 6
     if method > 1 or pre > 1 or rsrv:
-        return ALPHA_HEADER
+        return ALPHA_HEADER, None
     if method == 0:
-        return OK if len(alpha) - 1 >= width * height else ALPHA_HEADER
-    try:
-        _Lossless(_LBits(alpha[1:]), alpha=True).image_stream(width, height, True)
-    except _Refused as r:
-        return r.code
-    return OK
+        if len(alpha) - 1 < width * height:
+            return ALPHA_HEADER, None
+        if not plane:
+            return OK, None
+        raw = np.frombuffer(alpha, np.uint8, width * height, 1).reshape(height, width)
+    else:
+        try:
+            transforms, data = _Lossless(_LBits(alpha[1:]), alpha=True).image_stream(
+                width, height, True)
+        except _Refused as r:
+            return r.code, None
+        if not plane:
+            return OK, None
+        raw = ((_inverse_transforms(transforms, data) >> 8) & 0xFF).astype(np.uint8)
+    return OK, _unfilter_alpha(raw, filt)
+
+
+def _unfilter_alpha(raw: np.ndarray, filt: int) -> np.ndarray:
+    """libwebp's HorizontalUnfilter (1), VerticalUnfilter (2) and
+    GradientUnfilter (3) row by row; the first row of each is horizontal
+    from 0."""
+    h, w = raw.shape
+    out = np.empty_like(raw)
+    if filt == 0:
+        return raw.copy()
+    for y in range(h):
+        src = raw[y]
+        if y == 0 or filt == 1:
+            start = np.uint8(out[y - 1, 0]) if y and filt == 1 else np.uint8(0)
+            row = np.cumsum(np.concatenate([[start], src]).astype(np.uint64))[1:]
+            out[y] = (row & 0xFF).astype(np.uint8)
+        elif filt == 2:
+            out[y] = out[y - 1] + src
+        else:
+            prev = out[y - 1].tolist()
+            s = src.tolist()
+            row = [0] * w
+            left, top_left = prev[0], prev[0]
+            for i in range(w):
+                top = prev[i]
+                g = left + top - top_left
+                left = (s[i] + (g if 0 <= g <= 255 else 0 if g < 0 else 255)) & 0xFF
+                top_left = top
+                row[i] = left
+            out[y] = row
+    return out
 
 
 # -- VP8 ---------------------------------------------------------------------

@@ -185,6 +185,66 @@ def resample_lanczos(l8: np.ndarray, edge: int) -> np.ndarray:
     return out
 
 
+def resample_image(pixels: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """[h, w] or [h, w, c] uint8 → PIL's ``resize(size, LANCZOS)`` at
+    `size` = (width, height), c bands alike. The plain version is
+    ``media.imgdecode.resize_image``."""
+    pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
+    h, w = pixels.shape[:2]
+    c = pixels.shape[2] if pixels.ndim == 3 else 1
+    out_w, out_h = (int(v) for v in size)
+    if min(h, w, c, out_w, out_h) < 1 or pixels.ndim not in (2, 3):
+        raise ValueError(f"resample_image: {pixels.shape} to {size}")
+    out = np.empty((out_h, out_w) + pixels.shape[2:], np.uint8)
+    _build.library("imgdec").sd_resample_lanczos_image(
+        _ptr(pixels, ctypes.c_uint8), h, w, c, out_h, out_w, _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def thumb_rgb(pixels: np.ndarray, kind: int) -> np.ndarray:
+    """[h, w] or [h, w, c] pixels → [h, w, 3] uint8 RGB by ``sd_thumb_rgb``'s
+    `kind` (``media.imgdecode.THUMB_KINDS``). The plain version is
+    ``media.imgdecode.thumb_rgb_plain``."""
+    dtype = np.dtype("<u2") if kind == 1 else np.uint8
+    pixels = np.ascontiguousarray(pixels, dtype=dtype)
+    h, w = pixels.shape[:2]
+    c = pixels.shape[2] if pixels.ndim == 3 else 1
+    need = {0: 1, 1: 1, 2: 3, 3: 4}.get(kind)
+    if need is None or c < need or pixels.ndim not in (2, 3):
+        raise ValueError(f"thumb_rgb: {pixels.shape} {pixels.dtype}, kind {kind}")
+    out = np.empty((h, w, 3), np.uint8)
+    src = pixels.view(np.uint8)
+    _build.library("imgdec").sd_thumb_rgb(
+        _ptr(src, ctypes.c_uint8), h * w, c * pixels.itemsize, kind, _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def webp_encode(rgb: np.ndarray, q: int, uv_dc: int, level: int) -> bytes:
+    """[h, w, 3] uint8 RGB → a VP8 key frame's bytes (the payload of a
+    "VP8 " chunk) at quantiser `q`, chroma DC delta `uv_dc` and loop filter
+    `level`, in one call of csrc/webpenc.cpp. The plain version is
+    ``media.webpenc.encode_plain``."""
+    from .media import webp_tables as T
+    from .media.webpenc import COST
+
+    rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
+    h, w = rgb.shape[:2]
+    if rgb.ndim != 3 or rgb.shape[2] != 3 or min(h, w) < 1 or max(h, w) > 16383 or \
+            not 0 <= q <= 127:
+        raise ValueError(f"webp_encode: {rgb.shape}, q {q}")
+    tables = [np.asarray(t, np.int64) for t in
+              (T.DC_TABLE, T.AC_TABLE, T.COEFFS_PROBA0, T.COEFFS_UPDATE_PROBA, COST)]
+    cap = (1 << 16) + 4 * h * w
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = _build.library("webpenc").sd_webp_encode(
+            _ptr(rgb, ctypes.c_uint8), h, w, q, uv_dc, level,
+            *(_ptr(t, ctypes.c_int64) for t in tables), _ptr(out, ctypes.c_uint8), cap)
+        if n >= 0:
+            return out[:n].tobytes()
+        cap *= 4
+
+
 def gif_lzw(data: bytes, min_size: int, npixels: int) -> np.ndarray:
     """A GIF frame's LZW data (its sub-blocks joined) → [npixels] uint8
     palette indices; UnsupportedImage where the data or an end code comes
@@ -250,37 +310,47 @@ def tiff_chunks(data: bytes, route: int, offsets, counts, planes: int, down: int
     return int(status), (out if status == 0 else None)
 
 
-def _webp_rgb(fn: str, payload: bytes, width: int, height: int) -> tuple:
+def _webp_bands(fn: str, payload: bytes, width: int, height: int, *extra) -> tuple:
     if width < 1 or height < 1:
         raise ValueError(f"{fn}: frame {width}x{height}")
+    bands = extra[0] if extra else 3
     src = np.frombuffer(payload, np.uint8)
-    out = np.empty((height, width, 3), np.uint8)
+    out = np.empty((height, width, bands), np.uint8)
     status = getattr(_build.library("webpdec"), fn)(
-        _ptr(src, ctypes.c_uint8), src.size, width, height, _ptr(out, ctypes.c_uint8))
+        _ptr(src, ctypes.c_uint8), src.size, width, height, *extra, _ptr(out, ctypes.c_uint8))
     return int(status), (out if status == 0 else None)
 
 
-def webp_lossless(payload: bytes, width: int, height: int) -> tuple:
+def webp_lossless(payload: bytes, width: int, height: int, bands: int = 3) -> tuple:
     """A VP8L chunk's payload (to the end of the frame's bytes) of a
-    width x height frame → (status, [h, w, 3] uint8 RGB or None), in one
-    call of csrc/webpdec.cpp; status as ``media.webp.REASONS``. The plain
-    version is ``media.webp.lossless_plain``."""
-    return _webp_rgb("sd_webp_lossless", payload, width, height)
+    width x height frame → (status, [h, w, bands] uint8 RGB, or RGBA with
+    bands 4, or None), in one call of csrc/webpdec.cpp; status as
+    ``media.webp.REASONS``. The plain version is
+    ``media.webp.lossless_plain``."""
+    if bands not in (3, 4):
+        raise ValueError(f"webp_lossless: {bands} bands")
+    return _webp_bands("sd_webp_lossless_bands", payload, width, height, bands)
 
 
 def webp_lossy(payload: bytes, width: int, height: int) -> tuple:
     """A VP8 key frame's payload → (status, [h, w, 3] uint8 RGB or None),
     libwebp's reconstruction, loop filter, fancy upsampling and YUV to
     RGB. The plain version is ``media.webp.lossy_plain``."""
-    return _webp_rgb("sd_webp_lossy", payload, width, height)
+    return _webp_bands("sd_webp_lossy", payload, width, height)
 
 
-def webp_alpha(payload: bytes, width: int, height: int) -> int:
+def webp_alpha(payload: bytes, width: int, height: int, plane: bool = False):
     """An ALPH chunk's payload of a width x height frame → the status
-    libwebp's alpha decoder ends with (0 where it decodes). The plain
-    version is ``media.webp.alpha_plain``."""
+    libwebp's alpha decoder ends with (0 where it decodes); with `plane`,
+    (status, the [h, w] uint8 alpha plane or None). The plain versions are
+    ``media.webp.alpha_plain`` and ``alpha_plane_plain``."""
     if width < 1 or height < 1:
         raise ValueError(f"webp_alpha: frame {width}x{height}")
     src = np.frombuffer(payload, np.uint8)
-    return int(_build.library("webpdec").sd_webp_alpha(
-        _ptr(src, ctypes.c_uint8), src.size, width, height))
+    lib = _build.library("webpdec")
+    if not plane:
+        return int(lib.sd_webp_alpha(_ptr(src, ctypes.c_uint8), src.size, width, height))
+    out = np.empty((height, width), np.uint8)
+    status = int(lib.sd_webp_alpha_plane(_ptr(src, ctypes.c_uint8), src.size, width, height,
+                                         _ptr(out, ctypes.c_uint8)))
+    return status, (out if status == 0 else None)

@@ -90,6 +90,10 @@ _SIGNATURES = {
              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], None),
         "sd_resample_lanczos": (
             [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], None),
+        "sd_resample_lanczos_image": (
+            [_u8p] + [ctypes.c_int64] * 5 + [_u8p], None),
+        "sd_thumb_rgb": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
         "sd_gif_lzw": (
             [_u8p, ctypes.c_int64, ctypes.c_int64, _u8p, ctypes.c_int64], ctypes.c_int64),
     },
@@ -100,12 +104,20 @@ _SIGNATURES = {
             [_u8p, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
     },
     "webpdec": {
-        "sd_webp_lossless": (
-            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
         "sd_webp_alpha": (
             [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64], ctypes.c_int64),
+        "sd_webp_lossless_bands": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p],
+            ctypes.c_int64),
+        "sd_webp_alpha_plane": (
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
         "sd_webp_lossy": (
             [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
+    },
+    "webpenc": {
+        "sd_webp_encode": (
+            [_u8p] + [ctypes.c_int64] * 5 + [_i64p] * 5 + [_u8p, ctypes.c_int64],
+            ctypes.c_int64),
     },
     "tiffdec": {
         "sd_tiff_chunks": (

@@ -1,7 +1,7 @@
 """The named SQL statements the scan chain and the near-dup job run.
 
 A subset of ``spacedrive_tpu/store/statements.py``: each statement the
-port's store, sync, library, indexer, identifier, validator and dedup code
+port's store, sync, library, indexer, identifier, validator, dedup and media code
 execute, under the JAX package's name and with its SQL text
 (whitespace-collapsed, as the JAX registry keeps it;
 ``tests/test_torch_store.py`` holds the two texts equal). Call sites hold
@@ -184,3 +184,13 @@ _declare("dedup.pairs_within",
 _declare("dedup.paths_for_object",
          "SELECT materialized_path, name, extension "
          "FROM file_path WHERE object_id = ?", "read", "many")
+
+# -- media (media/processor.py, media/actor.py) -----------------------------
+_declare("media.file_rows",
+         "SELECT id, pub_id, object_id, cas_id, materialized_path, "
+         "name, extension FROM file_path WHERE {w} ORDER BY id", "read", "many",
+         registry=SHAPES)
+_declare("media.data_exists",
+         "SELECT id FROM media_data WHERE object_id = ?", "read", "one")
+_declare("media.known_cas",
+         "SELECT DISTINCT cas_id FROM file_path WHERE cas_id IS NOT NULL", "read", "many")

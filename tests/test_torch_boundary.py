@@ -96,10 +96,13 @@ def test_scan_covers_the_staging_plane_the_ring_and_the_scan_chain():
             port / "media" / "webp_tables.py", port / "store" / "actor.py",
             port / "flags.py", port / "tasks.py", port / "locations" / "shallow.py",
             port / "locations" / "watcher.py",
-            port / "locations" / "non_indexed.py"} <= set(PORT_FILES)
+            port / "locations" / "non_indexed.py", port / "persist.py",
+            *(port / "media" / f"{m}.py" for m in (
+                "exif", "pluscodes", "isobmff", "rawpreview", "images", "thumbnail",
+                "webpenc", "actor", "processor", "avmetadata"))} <= set(PORT_FILES)
     assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp",
                                                  "hamming.cu", "imgdec.cpp", "jpegdec.cpp",
-                                                 "tiffdec.cpp", "webpdec.cpp"}
+                                                 "tiffdec.cpp", "webpdec.cpp", "webpenc.cpp"}
 
 
 def _foreign_includes(path: Path, text: str):

@@ -497,3 +497,67 @@ def test_near_dup_job_on_the_card_matches_plain(cuda, tmp_path):
                                   np.stack([plain_state["hashes"][p] for p in paths]), grids)
     assert cuda_state["pairs"] == chip_smoke.brute_force_pairs(cuda_state["hashes"], 10)
     assert set(planted) <= {pair for pair, _ in cuda_state["pairs"]}
+
+
+def _png_rgb(rgb) -> bytes:
+    """A plain 8-bit RGB PNG (no PIL on the card's host)."""
+    import struct
+    import zlib
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(kind, payload):
+        return struct.pack(">I", len(payload)) + kind + payload + struct.pack(
+            ">I", zlib.crc32(kind + payload))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def test_scan_with_media_on_the_card_matches_plain(cuda, tmp_path):
+    """scan_location(with_media=True): K1 keys the thumbnails on the card;
+    the media rows and thumbnails equal the plain chain's."""
+    from spacedrive_tpu_torch.jobs.manager import JobManager
+    from spacedrive_tpu_torch.library import Libraries
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.media import webpenc
+
+    rng = np.random.default_rng(5)
+    root = tmp_path / "photos"
+    root.mkdir()
+    for i in range(12):
+        h, w = int(rng.integers(8, 900)), int(rng.integers(8, 900))
+        px = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        data = _png_rgb(px) if i % 2 else webpenc.encode(px)
+        (root / f"p{i}.{'png' if i % 2 else 'webp'}").write_bytes(data)
+
+    def run(backend):
+        data_dir = tmp_path / backend
+        lib = Libraries(str(data_dir)).create("media")
+        loc = locations.create_location(lib, str(root))
+
+        async def main():
+            jobs = JobManager(services={"data_dir": str(data_dir)})
+            await locations.scan_location(jobs, lib, loc, backend=backend, with_media=True)
+            await jobs.wait_idle()
+
+        asyncio.run(main())
+        rows = {r["cas_id"]: tuple(r)[2:] for r in lib.db.query(
+            "SELECT fp.cas_id, md.* FROM media_data md "
+            "JOIN file_path fp ON fp.object_id = md.object_id")}
+        thumbs = {p.name: p.read_bytes() for p in (data_dir / "thumbnails").rglob("*.webp")}
+        statuses = [r["status"] for r in lib.db.query("SELECT status FROM job ORDER BY rowid")]
+        lib.db.close()
+        return rows, thumbs, statuses
+
+    blake3_cuda.reset_launches()
+    on_card = run("cuda")
+    launches = dict(blake3_cuda.launches)
+    plain = run("plain")
+    from spacedrive_tpu_torch.ops.cas import MINIMUM_FILE_SIZE
+
+    assert on_card == plain and len(on_card[0]) == 12 and len(on_card[1]) == 12
+    assert on_card[2] == [2, 2, 2]
+    sizes = [p.stat().st_size for p in root.iterdir()]
+    classes = any(s > MINIMUM_FILE_SIZE for s in sizes) + any(s <= MINIMUM_FILE_SIZE for s in sizes)
+    assert launches[blake3_cuda.FAST] == classes == sum(launches.values())

@@ -221,16 +221,33 @@ def test_scan_chain_matches_the_jax_package(sides):
     assert "CHECKSUM MISMATCH" in errors and "f0007.txt" in errors
 
 
-def test_media_and_unknown_backends_are_refused(tmp_path):
+@pytest.mark.parametrize("case", ["with_media_chains", "sub_path_and_backend_refused"])
+def test_media_and_unknown_backends_are_refused(tmp_path, case):
+    """``with_media=True`` chains the media processor after the identifier;
+    the sub-path rescan (which chains none, in the JAX package too) and an
+    unknown backend are refused before any job is written."""
     lib = Libraries(str(tmp_path / "data")).create("refuse")
     try:
-        loc = locations.create_location(lib, str(tmp_path))
-        for scan in (locations.scan_location(JobManager(), lib, loc, backend="plain",
-                                             with_media=True),
-                     locations.scan_location_sub_path(JobManager(), lib, loc, "x",
-                                                      backend="plain", with_media=True)):
-            with pytest.raises(NotImplementedError, match="media processor"):
-                asyncio.run(scan)
+        root = tmp_path / "loc"
+        root.mkdir()
+        from PIL import Image
+        Image.new("RGB", (40, 30), (200, 30, 90)).save(root / "photo.png")
+        loc = locations.create_location(lib, str(root))
+        if case == "with_media_chains":
+            async def main():
+                jobs = JobManager(services={"data_dir": str(tmp_path / "data")})
+                await locations.scan_location(jobs, lib, loc, backend="plain", with_media=True)
+                await jobs.wait_idle()
+            asyncio.run(main())
+            jobs = [(r["name"], r["status"]) for r in
+                    lib.db.query("SELECT name, status FROM job ORDER BY rowid")]
+            assert jobs == [(n, int(JobStatus.COMPLETED)) for n in
+                            ("indexer", "file_identifier", "media_processor")]
+            assert lib.db.query_one("SELECT COUNT(*) AS n FROM media_data")["n"] == 1
+            return
+        with pytest.raises(NotImplementedError, match="sub-path rescan chains no media job"):
+            asyncio.run(locations.scan_location_sub_path(JobManager(), lib, loc, "x",
+                                                         backend="plain", with_media=True))
         with pytest.raises(ValueError, match="unknown backend"):
             FileIdentifierJob(location_id=loc, backend="auto")
         assert lib.db.query_one("SELECT COUNT(*) AS n FROM job")["n"] == 0

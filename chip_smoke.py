@@ -41,8 +41,8 @@ with CUDA events. Phases:
 7. scan — a 100 000-file location through the port's own job system:
    phase 4's directory plus ~83 600 sparse 120 000-byte files (1000 to a
    sub-directory, each with its own bytes at offset 0, two planted pairs),
-   ``create_location`` and ``scan_location(backend="cuda")`` in a fresh
-   library whose SQLite files sit in the system temp dir. IndexerJob walks
+   ``create_location`` and ``scan_location(backend="cuda", with_media=False)``
+   in a fresh library whose SQLite files sit in the system temp dir. IndexerJob walks
    and saves the rows, FileIdentifierJob hashes 16384-file steps with K1
    out of one pinned two-page pool and links or creates objects. Every CAS
    ID is held against an independent ``cas_ids_for_files(backend="cuda")``
@@ -72,7 +72,7 @@ with CUDA events. Phases:
    must refuse (a truncated PNG, a JPEG without EOI, random bytes, a
    truncated TIFF, a WebP whose VP8 data is cut, a JPEG claiming
    arithmetic coding); and B, about 2 000. Each is scanned with
-   ``scan_location(backend="cuda")``, then ``NearDupDetectorJob(backend=
+   ``scan_location(backend="cuda", with_media=False)``, then ``NearDupDetectorJob(backend=
    "cuda")`` decodes on the host (native C++ decoders), pHashes 256-image
    steps on the card and runs the exact pairs search: the pyramid
    (``hamming_near_counts`` launches) at A's ~5 900 digests, one
@@ -108,27 +108,35 @@ with CUDA events. Phases:
    ``walk_ephemeral(compute_cas_ids=True)`` over 64 PNG and JPEG images
    against its plain version. The write actor's groups, tickets per group
    and commits are printed for phase 7's scan and for this phase;
-12. media — the media plane's first half, in the system temp dir: a
-   location of about 1 200 images written by the harness's own writers
-   (16 camera-size 4032 x 3024 4:2:0 JPEGs with an APP1 EXIF block of
-   make, model, lens, date, f-number, exposure, ISO, orientation and GPS in
-   all four quadrants; JPEG, PNG ``eXIf``, VP8X WebP with an ``EXIF``
-   chunk, TIFF with IFD0 tags and an Exif sub-IFD, DNG and NEF with a
-   SubIFD JPEG preview, ``.heic``/``.avif`` boxes around a JPEG item and an
-   Exif item; every IMAGE_KINDS kind; seven files of the second media slice)
-   scanned with ``scan_location(backend="cuda", with_media=True)``, the
-   thumbnailer actor running: K1 launched once per size class of each
-   identifier page; every ``media_data`` row reads back what its writer
-   planted (plus codes included) and no other file has one; every
-   thumbnail at its keyed path at ``scale_dimensions``' size; the job's
-   errors exactly the second slice's names; the native decode, thumb_rgb
-   and LANCZOS equal their plain versions on a sample, the encoder's
-   native bytes its plain bytes, the thumbnails' native decode the plain
-   decode, their PSNR against the grid over the tests' floor; a second
-   scan writes nothing; ``walk_ephemeral`` over 64 images hands its CAS
-   IDs to the actor's ephemeral queue. Printed: the job's wall and images/s
-   and the seconds a stage (decode, thumb_rgb, resize, encode, write) by
-   format;
+12. media — the media plane, in the system temp dir: a location of about
+   1 200 images written by the harness's own writers (16 camera-size
+   4032 x 3024 4:2:0 JPEGs with an APP1 EXIF block of make, model, lens,
+   date, f-number, exposure, ISO, orientation and GPS in all four
+   quadrants; JPEG, PNG ``eXIf``, VP8X WebP with an ``EXIF`` chunk, TIFF
+   with IFD0 tags and an Exif sub-IFD, DNG and NEF with a SubIFD JPEG
+   preview, ``.heic``/``.avif`` boxes around a JPEG item and an Exif item;
+   every IMAGE_KINDS kind) and the second slice's files, also the
+   harness's own (WAV, FLAC, MP3, Ogg Vorbis; an MJPEG AVI of harness
+   JPEGs, an MP4 and an MKV with cover art, one 1920 x 1080 I_PCM H.264
+   frame in an MP4 whose planes are known by construction, the committed
+   ``tests/fixtures/h264`` and ``tests/fixtures/video`` files; four SVGs,
+   DCT and Flate PDFs), scanned with ``scan_location(backend="cuda")``
+   (the media job chained by default), the thumbnailer actor running: K1
+   launched once per size class of each identifier page; every
+   ``media_data`` row reads back what its writer planted (plus codes
+   included; ``stream_data`` the probe's fields) and no other file has
+   one; every thumbnail at its keyed path at ``scale_dimensions``' size,
+   the unresized ones over the PSNR floor against the planted pixels, the
+   1080p frame's planes exactly the planted ones; the job completed
+   without errors; the native decode, thumb_rgb and LANCZOS equal their
+   plain versions on a sample, the encoder's native bytes its plain bytes,
+   the thumbnails' native decode the plain decode, their PSNR against the
+   grid over the tests' floor; a second scan writes nothing;
+   ``walk_ephemeral`` over 64 images hands its CAS IDs to the actor's
+   ephemeral queue. Printed: the job's wall and images/s, the seconds a
+   stage (decode, thumb_rgb, resize, encode, write) by format, and the ms
+   a call of each second-slice route (probe by extension, frame route,
+   H.264 decode by frame size, SVG render, PDF stream);
 13. the kernel table as one JSON line, launches summed over phases 4-12,
    the CV forms beside them with their 0.
 
@@ -153,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 from typing import Optional
 
@@ -952,8 +961,9 @@ def _rel_path(root: str, r) -> str:
 
 
 def run_scan(lib, location_id: int, counts: dict, key: str, events: list) -> float:
-    """scan_location(backend="cuda") + wait_idle on a fresh JobManager, the
-    launch counts reset just before and read just after. Returns wall s."""
+    """scan_location(backend="cuda", with_media=False) + wait_idle on a fresh
+    JobManager, the launch counts reset just before and read just after.
+    Returns wall s."""
     import asyncio
 
     from spacedrive_tpu_torch.jobs.manager import JobManager
@@ -963,7 +973,8 @@ def run_scan(lib, location_id: int, counts: dict, key: str, events: list) -> flo
     async def main():
         jobs = JobManager(on_event=lambda e: events.append((time.perf_counter(), e))
                           if e["type"] == "JobUpdate" else None)
-        await locations.scan_location(jobs, lib, location_id, backend="cuda")
+        await locations.scan_location(jobs, lib, location_id, backend="cuda",
+                                      with_media=False)
         await jobs.wait_idle()
 
     torch.cuda.synchronize()
@@ -4310,10 +4321,7 @@ MEDIA_SIDES = ((48, 640), (48, 480))
 MEDIA_PLAIN_SAMPLE = 48       # small images whose grid the plain passes recompute
 MEDIA_PLAIN_ENCODES = 12      # thumbnails the plain encoder and decoder redo
 MEDIA_PSNR_FLOOR = 20.0       # dB, the floor tests/test_torch_thumbnail.py holds too
-MEDIA_BUDGET_S = 90.0
-# The second media slice's files: the job names each, writes no row.
-MEDIA_SLICE2 = ("song.mp3", "voice.wav", "clip.mp4", "movie.mkv", "cover.m4a", "drawing.svg",
-                "paper.pdf")
+MEDIA_BUDGET_S = 110.0
 # Planted GPS fixes, one a quadrant: (lat d, m, s as a rational, ref, lon ...,
 # ref) and (latitude, longitude, plus code) as the JAX package computes them
 # (spacedrive_tpu/media/exif.py and pluscodes.py, run once where it runs).
@@ -4572,8 +4580,6 @@ def _media_task(root: Path, seed: int, task) -> dict:
         ext = {"tif": "tiff"}.get(ext, ext)
         media = ext in ("jpg", "png", "webp", "tiff", "dng")
         out[path.replace(".ext", f".{ext}")] = (data, {} if media else None, None, enc)
-    else:  # the second media slice's files
-        out[path] = (bytes(rng.integers(0, 256, 2000, dtype=np.uint8)), None, None, "slice2")
     for rel, (data, *_rest) in out.items():
         (root / rel).parent.mkdir(parents=True, exist_ok=True)
         (root / rel).write_bytes(data)
@@ -4581,12 +4587,11 @@ def _media_task(root: Path, seed: int, task) -> dict:
 
 
 def write_media_corpus(root: Path, seed: int, executor) -> dict:
-    """Phase 12's location: the camera JPEGs, EXIF-bearing files of every
-    media format, IMAGE_KINDS singles and the second slice's names."""
+    """Phase 12's images: the camera JPEGs, EXIF-bearing files of every
+    media format, IMAGE_KINDS singles."""
     tasks = [("camera", k, "camera") for k in range(MEDIA_CAMERA_SCENES)]
     tasks += [("exif", k, f"exif/x{k:04d}.ext") for k in range(64)]
     tasks += [("single", k, f"d{k // 256:02d}/s{k:05d}.ext") for k in range(MEDIA_SINGLES)]
-    tasks += [("slice2", k, f"later/{name}") for k, name in enumerate(MEDIA_SLICE2)]
     import functools
 
     made = {}
@@ -4594,6 +4599,401 @@ def write_media_corpus(root: Path, seed: int, executor) -> dict:
         made.update(part)
     return {"files": {rel: rest for rel, (_, *rest) in made.items()},
             "bytes": sum(n for n, *_ in made.values())}
+
+
+# -- the second media slice's files: the harness's own writers ----------------
+
+MEDIA_VIDEO_1080 = (1920, 1080)   # the I_PCM H.264 frame, a phone video's size
+MEDIA_SVG_DOCS = {
+    # Left third red, right third blue: the thumbnail must keep them.
+    "flag.svg": """<svg xmlns="http://www.w3.org/2000/svg" viewBox="0 0 300 200">
+  <rect width="100" height="200" fill="red"/><rect x="100" width="100" height="200"
+  fill="rgb(255, 255, 255)"/><rect x="200" width="100" height="200" fill="#0000ff"/>
+  <circle cx="150" cy="100" r="40" fill="none" stroke="black" stroke-width="9"/></svg>""",
+    "icon.svg": """<svg xmlns="http://www.w3.org/2000/svg" width="120" height="90">
+  <g transform="translate(60,45) rotate(30) scale(1.2,0.8)">
+    <ellipse rx="40" ry="20" fill="hsl(40, 80%, 60%)" stroke="DarkSlateGray"
+      stroke-width="3"/></g>
+  <path d="M 5 80 C 20 40, 40 100, 60 60 S 100 20, 115 70" fill="none" stroke="#c03"
+    stroke-width="1.5" opacity="0.8"/>
+  <polyline points="10,10 40,20 20,35 55,30" fill="none" stroke="navy" stroke-width="0.2"/>
+  <path d="M80 10 A 12 8 30 1 1 100 20 z" fill="url(#none)" stroke="green"/></svg>""",
+    "tall.svgz": """<svg xmlns="http://www.w3.org/2000/svg" viewBox="0 0 40 400">
+  <rect width="40" height="400" fill="teal"/><line x1="0" y1="0" x2="40" y2="400"
+  stroke="white" stroke-width="5"/></svg>""",
+    "broken.svg": "<svg",
+}
+
+
+def wav_bytes(seconds: float, rate: int, channels: int) -> bytes:
+    import io
+    import wave
+
+    n = int(seconds * rate)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(channels)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        t = np.arange(n) / rate
+        pcm = (8000 * np.sin(2 * np.pi * 440 * t)).astype("<i2")
+        w.writeframes(np.repeat(pcm, channels).tobytes())
+    return buf.getvalue()
+
+
+def flac_bytes(rate: int, channels: int, depth: int, total: int) -> bytes:
+    bits = (rate << 44) | ((channels - 1) << 41) | ((depth - 1) << 36) | total
+    info = struct.pack(">HH", 4096, 4096) + bytes(6) + bits.to_bytes(8, "big") + bytes(16)
+    return b"fLaC" + bytes([0x80]) + len(info).to_bytes(3, "big") + info
+
+
+def mp3_bytes(frames: int) -> bytes:
+    """MPEG-1 Layer III at 128 kbps, 44.1 kHz, stereo, behind a 10-byte ID3
+    tag: 417-byte frames."""
+    return b"ID3\x04\x00\x00\x00\x00\x00\x0a" + bytes(10) + (
+        b"\xff\xfb\x90\x00" + bytes(413)) * frames
+
+
+def ogg_vorbis_bytes(rate: int, channels: int, granule: int) -> bytes:
+    ident = b"\x01vorbis" + struct.pack("<IBI", 0, channels, rate) + bytes(9)
+    first = b"OggS\x00\x02" + struct.pack("<q", 0) + bytes(12) + bytes([1, len(ident)]) + ident
+    last = b"OggS\x00\x04" + struct.pack("<q", granule) + bytes(12) + bytes([1, 1, 0])
+    return first + last
+
+
+def riff_chunk(kind: bytes, payload: bytes) -> bytes:
+    return kind + struct.pack("<I", len(payload)) + payload + (b"\x00" if len(payload) & 1
+                                                               else b"")
+
+
+def avi_mjpeg_bytes(jpegs: list, width: int, height: int, fps: int) -> bytes:
+    """RIFF AVI: hdrl (avih, one vids strl of MJPG), movi of 00dc frames,
+    idx1."""
+    us = 1_000_000 // fps
+    big = max(len(j) for j in jpegs)
+    avih = struct.pack("<14I", us, big * fps, 0, 0x10, len(jpegs), 0, 1, big, width, height,
+                       0, 0, 0, 0)
+    strh = b"vidsMJPG" + struct.pack("<IHHIIIIIIII", 0, 0, 0, 0, 1, fps, 0, len(jpegs), big,
+                                     0xFFFFFFFF, 0) + struct.pack("<4H", 0, 0, width, height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, b"MJPG", width * height * 3,
+                       0, 0, 0, 0)
+    hdrl = riff_chunk(b"LIST", b"hdrl" + riff_chunk(b"avih", avih) + riff_chunk(
+        b"LIST", b"strl" + riff_chunk(b"strh", strh) + riff_chunk(b"strf", strf)))
+    movi, index = b"movi", []
+    for j in jpegs:
+        index.append(b"00dc" + struct.pack("<III", 0x10, len(movi), len(j)))
+        movi += riff_chunk(b"00dc", j)
+    body = b"AVI " + hdrl + riff_chunk(b"LIST", movi) + riff_chunk(b"idx1", b"".join(index))
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def bmff_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(payload), kind) + payload
+
+
+def bmff_full(kind: bytes, version: int, flags: int, payload: bytes) -> bytes:
+    return bmff_box(kind, bytes([version]) + flags.to_bytes(3, "big") + payload)
+
+
+MATRIX = struct.pack(">9i", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+
+
+def bmff_trak(handler: bytes, entry: bytes, timescale: int, duration: int, samples: int,
+              width: int = 0, height: int = 0, tables: bytes = None) -> bytes:
+    tkhd = bmff_full(b"tkhd", 0, 7, struct.pack(">IIIII", 0, 0, 1, 0, duration) + bytes(8)
+                     + struct.pack(">hhhh", 0, 0, 0, 0) + MATRIX
+                     + struct.pack(">II", width << 16, height << 16))
+    mdhd = bmff_full(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, timescale, duration, 0x55C4,
+                                                0))
+    hdlr = bmff_full(b"hdlr", 0, 0, bytes(4) + handler + bytes(12) + b"smoke\x00")
+    stsd = bmff_full(b"stsd", 0, 0, struct.pack(">I", 1) + entry)
+    stts = bmff_full(b"stts", 0, 0, struct.pack(">III", 1, samples, max(duration // samples, 1)))
+    stbl = bmff_box(b"stbl", stsd + stts + (tables or b""))
+    return bmff_box(b"trak", tkhd + bmff_box(b"mdia", mdhd + hdlr + bmff_box(b"minf", stbl)))
+
+
+def avc1_entry(width: int, height: int, avcc: bytes = b"") -> bytes:
+    return bmff_box(b"avc1", bytes(6) + struct.pack(">H", 1) + bytes(16)
+                    + struct.pack(">HHII", width, height, 0x480000, 0x480000) + bytes(4)
+                    + struct.pack(">H", 1) + bytes(32) + struct.pack(">Hh", 0x18, -1)
+                    + (bmff_box(b"avcC", avcc) if avcc else b""))
+
+
+def mp4_with_cover_bytes(width: int, height: int, seconds: int, cover: bytes) -> bytes:
+    """An MP4 of an avc1 video track (no decodable sample) and an mp4a audio
+    track, with iTunes cover art in moov/udta/meta/ilst/covr."""
+    mp4a = bmff_box(b"mp4a", bytes(6) + struct.pack(">H", 1) + bytes(8)
+                    + struct.pack(">HH", 2, 16) + bytes(4) + struct.pack(">I", 48000 << 16))
+    mvhd = bmff_full(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000, 1000 * seconds)
+                     + struct.pack(">IH", 0x10000, 0x100) + bytes(10) + MATRIX + bytes(24)
+                     + struct.pack(">I", 3))
+    video = bmff_trak(b"vide", avc1_entry(width, height), 12800, 12800 * seconds,
+                      30 * seconds, width, height)
+    audio = bmff_trak(b"soun", mp4a, 48000, 48000 * seconds, 48000 * seconds)
+    covr = bmff_box(b"covr", bmff_box(b"data", struct.pack(">II", 13, 0) + cover))
+    udta = bmff_box(b"udta", bmff_full(b"meta", 0, 0, bmff_full(b"hdlr", 0, 0, bytes(20))
+                                       + bmff_box(b"ilst", covr)))
+    return (bmff_box(b"ftyp", b"isom\x00\x00\x02\x00isommp42")
+            + bmff_box(b"moov", mvhd + video + audio + udta) + bmff_box(b"mdat", bytes(64)))
+
+
+def ebml(eid: int, payload: bytes) -> bytes:
+    size = bytes([0x80 | len(payload)]) if len(payload) < 0x7F else struct.pack(
+        ">BI", 0x08, len(payload))
+    return eid.to_bytes((eid.bit_length() + 7) // 8, "big") + size + payload
+
+
+def mkv_with_attachment_bytes(width: int, height: int, ms: float, cover: bytes) -> bytes:
+    info = ebml(0x1549A966, ebml(0x2AD7B1, (1_000_000).to_bytes(3, "big"))
+                + ebml(0x4489, struct.pack(">d", ms)))
+    vtrack = ebml(0xAE, ebml(0x83, b"\x01") + ebml(0x86, b"V_MPEG4/ISO/AVC") + ebml(
+        0xE0, ebml(0xB0, width.to_bytes(2, "big")) + ebml(0xBA, height.to_bytes(2, "big"))))
+    atrack = ebml(0xAE, ebml(0x83, b"\x02") + ebml(0x86, b"A_AAC") + ebml(
+        0xE1, ebml(0xB5, struct.pack(">f", 44100.0)) + ebml(0x9F, b"\x02")))
+    attach = ebml(0x1941A469, ebml(0x61A7, ebml(0x466E, b"cover.jpg")
+                                   + ebml(0x4660, b"image/jpeg") + ebml(0x465C, cover)))
+    return (ebml(0x1A45DFA3, ebml(0x4282, b"matroska"))
+            + ebml(0x18538067, info + ebml(0x1654AE6B, vtrack + atrack) + attach))
+
+
+class _Bits:
+    """An RBSP bit writer: u(n), ue, se, byte alignment."""
+
+    def __init__(self):
+        self.bits = []
+
+    def u(self, value: int, n: int) -> None:
+        self.bits += [(value >> k) & 1 for k in range(n - 1, -1, -1)]
+
+    def ue(self, v: int) -> None:
+        v += 1
+        self.bits += [0] * (v.bit_length() - 1)
+        self.u(v, v.bit_length())
+
+    def se(self, v: int) -> None:
+        self.ue(2 * v - 1 if v > 0 else -2 * v)
+
+    def bytes(self, stop: bool = True) -> bytes:
+        bits = self.bits + ([1] if stop else [])
+        bits += [0] * (-len(bits) % 8)
+        return np.packbits(np.array(bits, np.uint8)).tobytes()
+
+
+def nal(kind: int, rbsp: bytes) -> bytes:
+    """A NAL unit (ref_idc 3) with emulation-prevention bytes."""
+    return bytes([0x60 | kind]) + re.sub(b"\x00\x00(?=[\x00-\x03])", b"\x00\x00\x03", rbsp,
+                                         flags=re.S)
+
+
+def h264_ipcm_nals(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, height: int) -> list:
+    """SPS, PPS and one IDR slice of I_PCM macroblocks (baseline, CAVLC,
+    no deblocking) carrying planes y [H, W], cb and cr [H/2, W/2], H and W
+    multiples of 16, cropped to `height` rows."""
+    h_mb, w_mb = y.shape[0] // 16, y.shape[1] // 16
+    sps = _Bits()
+    for v, n in ((66, 8), (0xC0, 8), (40, 8)):
+        sps.u(v, n)
+    for v in (0, 0, 2, 0):
+        sps.ue(v)               # sps id, log2 max frame num - 4, poc type 2, refs
+    sps.u(0, 1)
+    sps.ue(w_mb - 1)
+    sps.ue(h_mb - 1)
+    sps.u(1, 1)                 # frame_mbs_only
+    sps.u(0, 1)
+    crop = (y.shape[0] - height) // 2
+    sps.u(1 if crop else 0, 1)
+    if crop:
+        for v in (0, 0, 0, crop):
+            sps.ue(v)
+    sps.u(0, 1)                 # no VUI
+    pps = _Bits()
+    pps.ue(0)
+    pps.ue(0)
+    pps.u(0, 1)                 # CAVLC
+    pps.u(0, 1)
+    for v in (0, 0, 0):
+        pps.ue(v)
+    pps.u(0, 1)
+    pps.u(0, 2)
+    for v in (0, 0, 0):
+        pps.se(v)               # pic_init_qp 26, qs, chroma offset
+    pps.u(1, 1)                 # deblocking control present
+    pps.u(0, 1)
+    pps.u(0, 1)
+    head = _Bits()
+    for v in (0, 7, 0):
+        head.ue(v)              # first mb, slice type I, pps id
+    head.u(0, 4)                # frame_num
+    head.ue(0)                  # idr_pic_id
+    head.u(0, 2)                # no_output_of_prior_pics, long_term_reference
+    head.se(0)                  # slice_qp_delta
+    head.ue(1)                  # deblocking off
+    head.ue(25)                 # the first macroblock: I_PCM, then its alignment
+    mbs = np.concatenate([
+        y.reshape(h_mb, 16, w_mb, 16).transpose(0, 2, 1, 3).reshape(-1, 256),
+        cb.reshape(h_mb, 8, w_mb, 8).transpose(0, 2, 1, 3).reshape(-1, 64),
+        cr.reshape(h_mb, 8, w_mb, 8).transpose(0, 2, 1, 3).reshape(-1, 64)], 1)
+    # Every later macroblock: ue(25) = 000011010 and 7 alignment zeros.
+    body = np.concatenate([np.tile(np.array([0x0D, 0x00], np.uint8), (len(mbs), 1)), mbs], 1)
+    rbsp = head.bytes(stop=False) + body.reshape(-1)[2:].tobytes() + b"\x80"
+    return [nal(7, sps.bytes()), nal(8, pps.bytes()), nal(5, rbsp)]
+
+
+def h264_mp4_bytes(nals: list, width: int, height: int) -> bytes:
+    """One key frame in an MP4: avcC with the SPS and PPS, the sample's NALs
+    length-prefixed in mdat, a full sample table."""
+    sps, pps, *slices = nals
+    sample = b"".join(struct.pack(">I", len(n)) + n for n in slices)
+    ftyp = bmff_box(b"ftyp", b"isom\x00\x00\x02\x00isomavc1")
+    avcc = (b"\x01" + sps[1:4] + b"\xff\xe1" + struct.pack(">H", len(sps)) + sps + b"\x01"
+            + struct.pack(">H", len(pps)) + pps)
+    tables = (bmff_full(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, 1, 1))
+              + bmff_full(b"stsz", 0, 0, struct.pack(">III", 0, 1, len(sample)))
+              + bmff_full(b"stco", 0, 0, struct.pack(">II", 1, len(ftyp) + 8))
+              + bmff_full(b"stss", 0, 0, struct.pack(">II", 1, 1)))
+    mvhd = bmff_full(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 1000, 1000)
+                     + struct.pack(">IH", 0x10000, 0x100) + bytes(10) + MATRIX + bytes(24)
+                     + struct.pack(">I", 2))
+    trak = bmff_trak(b"vide", avc1_entry(width, height, avcc), 1000, 1000, 1, width, height,
+                     tables)
+    return ftyp + bmff_box(b"mdat", sample) + bmff_box(b"moov", mvhd + trak)
+
+
+def pdf_bytes(*images: tuple) -> bytes:
+    """A PDF of image XObjects: (w, h, colour space, filter, stream,
+    extra dictionary entries)."""
+    out = b"%PDF-1.4\n1 0 obj\n<< /Type /Catalog >>\nendobj\n"
+    for k, (w, h, space, filt, stream, extra) in enumerate(images, 2):
+        out += (b"%d 0 obj\n<< /Type /XObject /Subtype /Image /Width %d /Height %d "
+                b"/ColorSpace %s /BitsPerComponent 8 /Filter %s %s/Length %d >>\nstream\n"
+                % (k, w, h, space, filt, extra, len(stream)) + stream + b"\nendstream\nendobj\n")
+    return out + b"trailer\n<< /Root 1 0 R >>\n%%EOF\n"
+
+
+def png_predicted(rows: np.ndarray) -> bytes:
+    """[h, w·c] uint8 rows behind PNG filter bytes, Sub / Up / None in turn."""
+    out = bytearray()
+    prev = np.zeros(rows.shape[1], np.int64)
+    for k, row in enumerate(rows.astype(np.int64)):
+        f = k % 3
+        enc = row - (np.concatenate([[0, 0, 0], row[:-3]]) if f == 1 else prev if f == 2 else 0)
+        out += bytes([f]) + bytes((enc & 0xFF).astype(np.uint8))
+        prev = row
+    return bytes(out)
+
+
+def bt601_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """The thumbnailer's YCbCr 4:2:0 → RGB (media/h264.py yuv420_to_rgb)."""
+    h, w = y.shape
+    cb = np.repeat(np.repeat(cb, 2, 0), 2, 1)[:h, :w].astype(np.float64) - 128
+    cr = np.repeat(np.repeat(cr, 2, 0), 2, 1)[:h, :w].astype(np.float64) - 128
+    yy = (y.astype(np.float64) - 16) * (255.0 / 219.0)
+    return np.clip(np.stack([yy + 1.596 * cr, yy - 0.392 * cb - 0.813 * cr, yy + 2.017 * cb],
+                            -1), 0, 255).astype(np.uint8)
+
+
+def svg_render_size(text: str) -> tuple:
+    """The size the rasterizer renders an SVG at: its viewBox (else width and
+    height) scaled to 262 144 px²."""
+    box = re.search(r'viewBox="([^"]+)"', text)
+    if box:
+        vw, vh = (float(v) for v in box.group(1).split()[2:])
+    else:
+        vw, vh = (float(re.search(rf'{k}="([\d.]+)', text).group(1)) for k in ("width", "height"))
+    scale = (262_144.0 / (vw * vh)) ** 0.5
+    return max(1, int(round(vw * scale))), max(1, int(round(vh * scale)))
+
+
+def write_media_slice2(root: Path, seed: int) -> dict:
+    """Phase 12's second-slice files under `root`: {rel: plant}, a plant
+    {"row": the stream_data fields it must read back, or None; "thumb":
+    the (w, h) of the image its thumbnail is made from, or None; "rgb": the
+    pixels the thumbnail must show where it is not resized; "planes": the
+    H.264 planes the decoder must give}."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    plants = {}
+
+    def put(rel, data, row=None, thumb=None, **extra):
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_bytes(data)
+        plants[rel] = {"row": row, "thumb": thumb, **extra}
+
+    put("audio/voice.wav", wav_bytes(1.5, 8000, 1), {
+        "format_name": "wav", "audio_codec": "pcm_s16le", "channels": 1, "sample_rate": 8000,
+        "bitrate": 128000, "duration_seconds": 1.5})
+    put("audio/album.flac", flac_bytes(44100, 2, 16, 441_000), {
+        "format_name": "flac", "audio_codec": "flac", "sample_rate": 44100, "channels": 2,
+        "bits_per_sample": 16, "duration_seconds": 10.0})
+    put("audio/song.mp3", mp3_bytes(100), {
+        "format_name": "mp3", "audio_codec": "mp3", "sample_rate": 44100, "channels": 2,
+        "bitrate": 128000, "duration_seconds": round(41700 * 8 / 128000, 3)})
+    put("audio/track.ogg", ogg_vorbis_bytes(48000, 2, 96000), {
+        "format_name": "ogg", "audio_codec": "vorbis", "channels": 2, "sample_rate": 48000,
+        "duration_seconds": 2.0})
+    frames = [np.clip(image_scene(rng, 240, 320), 0, 255).astype(np.uint8) for _ in range(10)]
+    put("video/clip.avi", avi_mjpeg_bytes([jpeg_bytes(f, 90) for f in frames], 320, 240, 10), {
+        "format_name": "avi", "width": 320, "height": 240, "fps": 10.0,
+        "duration_seconds": 1.0, "video_codec": "MJPG"}, (320, 240), rgb=frames[1])
+    cover = np.clip(image_scene(rng, 300, 300), 0, 255).astype(np.uint8)
+    put("video/movie.mp4", mp4_with_cover_bytes(1280, 720, 12, jpeg_bytes(cover, 90)), {
+        "format_name": "mp4", "brand": "isom", "duration_seconds": 12.0, "video_codec": "avc1",
+        "width": 1280, "height": 720, "fps": 30.0, "audio_codec": "mp4a", "channels": 2,
+        "sample_rate": 48000}, (300, 300), rgb=cover)
+    art = np.clip(image_scene(rng, 200, 150), 0, 255).astype(np.uint8)
+    put("video/film.mkv", mkv_with_attachment_bytes(1920, 800, 95_000.0, jpeg_bytes(art, 90)), {
+        "format_name": "matroska", "duration_seconds": 95.0, "video_codec": "V_MPEG4/ISO/AVC",
+        "width": 1920, "height": 800, "audio_codec": "A_AAC", "sample_rate": 44100,
+        "channels": 2}, (150, 200), rgb=art)
+    # The phone video: one 1920 x 1080 I_PCM frame whose planes the decoder
+    # must give back exactly.
+    w, h = MEDIA_VIDEO_1080
+    hc = (h + 15) // 16 * 16
+    yy, xx = np.mgrid[0:hc, 0:w]
+    y = np.clip(16 + (xx * 219 // w + (yy // 8) % 7 + rng.integers(0, 3, (hc, w))), 0,
+                255).astype(np.uint8)
+    cy, cx = np.mgrid[0:hc // 2, 0:w // 2]
+    cb = ((cx * 255 // (w // 2) + cy) % 256).astype(np.uint8)
+    cr = ((cy * 255 // (hc // 2) + 3 * cx) % 256).astype(np.uint8)
+    put("video/phone.mp4", h264_mp4_bytes(h264_ipcm_nals(y, cb, cr, h), w, h), {
+        "format_name": "mp4", "brand": "isom", "duration_seconds": 1.0, "video_codec": "avc1",
+        "width": w, "height": h, "fps": 1.0}, (w, h),
+        planes=(y[:h], cb[:h // 2], cr[:h // 2]))
+    # The committed H.264 and video fixtures, as the repo holds them.
+    for name in ("gradient_ipcm.mp4", "gradient_ipcm.ts", "mixed_cavlc.mp4", "mixed_cavlc.m2ts",
+                 "gradient_ipcm.264"):
+        truth = np.load(ROOT / "tests" / "fixtures" / "h264" / (name.split(".")[0]
+                                                                  + ".truth.npz"))
+        size = truth["Y"].shape[::-1]
+        is_mp4 = name.endswith(".mp4")
+        put(f"fixtures/{name}", (ROOT / "tests" / "fixtures" / "h264" / name).read_bytes(),
+            {"width": size[0], "height": size[1]} if is_mp4 else None,
+            None if name.endswith(".264") else size,
+            rgb=bt601_rgb(truth["Y"], truth["Cb"], truth["Cr"]) if "Cb" in truth else None)
+    for path in sorted((ROOT / "tests" / "fixtures" / "video").iterdir()):
+        parsed = path.suffix in (".mp4", ".webm")
+        put(f"fixtures/{path.name}", path.read_bytes(), {} if parsed else None, None,
+            any_thumb=True)
+    for name, text in MEDIA_SVG_DOCS.items():
+        data = gzip.compress(text.encode()) if name.endswith(".svgz") else text.encode()
+        put(f"drawings/{name}", data, None, None if name == "broken.svg" else
+            svg_render_size(text))
+    page = np.clip(image_scene(rng, 300, 400), 0, 255).astype(np.uint8)
+    flat = np.clip(image_scene(rng, 200, 320), 0, 255).astype(np.uint8)
+    gray = np.clip(image_scene(rng, 90, 120)[..., 0], 0, 255).astype(np.uint8)
+    put("docs/scan.pdf", pdf_bytes((400, 300, b"/DeviceRGB", b"/DCTDecode",
+                                    jpeg_bytes(page, 92), b"")), None, (400, 300), rgb=page)
+    put("docs/chart.pdf", pdf_bytes(
+        (20, 10, b"/DeviceRGB", b"/FlateDecode", zlib.compress(bytes(600)), b""),
+        (320, 200, b"/DeviceRGB", b"/FlateDecode", zlib.compress(png_predicted(
+            flat.reshape(200, -1))), b"/DecodeParms << /Predictor 15 /Colors 3 /Columns 320 >> ")),
+        None, (320, 200), rgb=flat)
+    put("docs/gray.pdf", pdf_bytes((120, 90, b"/DeviceGray", b"/FlateDecode",
+                                    zlib.compress(gray.tobytes()), b"")), None, (120, 90),
+        rgb=np.repeat(gray[..., None], 3, -1))
+    put("docs/text.pdf", b"%PDF-1.4\n1 0 obj\n<< /Type /Catalog >>\nendobj\n%%EOF\n")
+    return plants
 
 
 class _MediaOwner:
@@ -4697,22 +5097,182 @@ def _media_encode_one(args) -> tuple:
     return same_bytes, same_decode, 99.0 if mse == 0 else 10 * np.log10(255 ** 2 / mse)
 
 
-def media_rows(lib, root: Path) -> dict:
+def media_rows(lib, root: Path) -> tuple:
+    """The media_data rows by relative path: (EXIF rows, their msgpack
+    fields decoded; stream rows, their stream_data JSON decoded)."""
     from spacedrive_tpu_torch import _msgpack
 
-    rows = {}
+    rows, streams = {}, {}
     for r in lib.db.query("SELECT fp.materialized_path, fp.name, fp.extension, md.* "
                           "FROM media_data md JOIN file_path fp ON fp.object_id = md.object_id"):
         rel = (r["materialized_path"].lstrip("/") + r["name"] + "." + r["extension"])
+        if r["stream_data"] is not None:
+            streams[rel] = json.loads(r["stream_data"])
+            continue
         row = {k: _msgpack.unpackb(r[k]) for k in ("resolution", "media_date", "media_location",
                                                    "camera_data") if r[k] is not None}
         rows[rel] = row
-    return rows
+    return rows, streams
+
+
+@contextlib.contextmanager
+def media_route_clock(routes: dict, planes: dict):
+    """While open, routes[name] = [calls, seconds] of the second slice's
+    routes: each probe by extension (``probe/<ext>``), each video frame
+    route (``frame/mjpeg``, ``frame/h264``, ``frame/cover``), the H.264
+    decode by frame size (``h264/<w>x<h>``), the SVG render and the PDF
+    image stream; planes[path] the planes each H.264 decode gave."""
+    import threading
+
+    from spacedrive_tpu_torch.media import h264, mpegts, pdf, processor, svg, video
+
+    lock = threading.Lock()
+
+    def add(name, dt):
+        with lock:
+            calls = routes.setdefault(name, [0, 0.0])
+            calls[0] += 1
+            calls[1] += dt
+
+    def timed(module, attr, name_of):
+        fn = getattr(module, attr)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            add(name_of(args, out), time.perf_counter() - t0)
+            return out
+
+        return module, attr, fn, wrapper
+
+    def decoded(args, out):
+        if out is None:
+            return "h264/none"
+        with lock:
+            planes[str(args[0])] = out
+        return f"h264/{out[0].shape[1]}x{out[0].shape[0]}"
+
+    patches = [timed(processor, "probe_media",
+                     lambda a, o: "probe/" + str(a[0]).rsplit(".", 1)[1].lower()),
+               timed(video, "_mjpeg_thumbnail", lambda a, o: "frame/mjpeg"),
+               timed(video, "_h264_thumbnail", lambda a, o: "frame/h264"),
+               timed(video, "_cover_art_thumbnail", lambda a, o: "frame/cover"),
+               timed(h264, "keyframe_from_mp4", decoded),
+               timed(mpegts, "keyframe_from_ts", decoded),
+               timed(svg, "render_svg", lambda a, o: "svg"),
+               timed(pdf, "pdf_first_image", lambda a, o: "pdf")]
+    for module, attr, _, wrapper in patches:
+        setattr(module, attr, wrapper)
+    try:
+        yield
+    finally:
+        for module, attr, fn, _ in patches:
+            setattr(module, attr, fn)
+
+
+def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(((a.astype(np.float64) - b) ** 2).mean())
+    return 99.0 if mse == 0 else 10 * np.log10(255 ** 2 / mse)
+
+
+def check_slice2_thumbnail(rel: str, plant: dict, path: str, planes: dict,
+                           check_planes: bool) -> None:
+    """One second-slice thumbnail against its plant: its size, the H.264
+    planes the decoder gave (where `check_planes`), its PSNR against the
+    planted pixels where it was not resized (against the plain grid of the
+    planted planes for the frame), the flag's colours."""
+    from spacedrive_tpu_torch.media import imgdecode
+    from spacedrive_tpu_torch.media.thumbnail import scale_dimensions, thumbnail_rgb
+
+    require(os.path.exists(path), f"phase 12: no thumbnail of {rel}")
+    shown = imgdecode.decode_image(Path(path).read_bytes())[0]
+    size = scale_dimensions(*plant["thumb"])
+    require(tuple(shown.shape[1::-1]) == size,
+            f"phase 12: {rel} thumbnail {shown.shape[1::-1]} != {size}")
+    want_rgb = None
+    if "planes" in plant:
+        if check_planes:
+            got = planes.get(rel)
+            require(got is not None and all(np.array_equal(g, w)
+                                            for g, w in zip(got, plant["planes"])),
+                    f"phase 12: {rel} decoded planes != the planted planes")
+        want_rgb = thumbnail_rgb(bt601_rgb(*plant["planes"]), "RGB", native=False)
+    elif plant.get("rgb") is not None and size == plant["thumb"]:
+        want_rgb = plant["rgb"]
+    if want_rgb is not None:
+        db = psnr_db(shown, want_rgb)
+        require(db >= MEDIA_PSNR_FLOOR, f"phase 12: {rel} thumbnail at {db:.2f} dB")
+    if rel.endswith("flag.svg"):
+        w = shown.shape[1]
+        left = shown[:, : w // 6].reshape(-1, 3).mean(0)
+        right = shown[:, -w // 6:].reshape(-1, 3).mean(0)
+        require(np.abs(left - (255, 0, 0)).max() < 40 and np.abs(right - (0, 0, 255)).max() < 40,
+                f"phase 12: the flag's thirds read {left.round()} and {right.round()}")
+
+
+def check_media_slice2(plants: dict, streams: dict, data_dir: str, by_path: dict,
+                       strict: bool) -> int:
+    """Every second-slice row and thumbnail of the scan against its plant;
+    returns the thumbnails checked. `strict`: neither ffmpeg nor OpenCV on
+    this host, so every route is the self-hosted one and the rows and the
+    thumbnail set are known exactly; else OpenCV (or ffprobe) may probe and
+    decode more than the plants name."""
+    from spacedrive_tpu_torch.media.thumbnail import thumbnail_path
+
+    thumbs = 0
+    for rel, plant in plants.items():
+        got, want = streams.get(rel), plant["row"]
+        if want is None:
+            require(got is None or not strict, f"phase 12: a stream row for {rel}: {got}")
+        elif rel.startswith("fixtures/"):
+            require(got is not None and all(got.get(k) == v for k, v in want.items()),
+                    f"phase 12: {rel} stream row {got} lacks {want}")
+        else:
+            require(got == want or (not strict and got is not None),
+                    f"phase 12: {rel} stream row {got} != {want}")
+        path = thumbnail_path(data_dir, by_path[rel])
+        if plant["thumb"] is None:
+            require(not os.path.exists(path) or (plant.get("any_thumb") and not strict),
+                    f"phase 12: a thumbnail of {rel}")
+            thumbs += os.path.exists(path)
+            continue
+        thumbs += 1
+        check_slice2_thumbnail(rel, plant, path, {}, check_planes=False)
+    return thumbs
+
+
+def self_hosted_frames(plants: dict, root: Path, out_dir: Path, routes: dict) -> float:
+    """The video plants again through ``video.generate_video_thumbnail`` with
+    the ffmpeg and OpenCV gates closed, as the chain runs on a host without
+    them (the JAX package's too): MJPEG, H.264 from MP4 and TS, cover art,
+    every frame and its planes against the plant. Returns its wall s."""
+    from spacedrive_tpu_torch.media import video
+
+    planes: dict = {}
+    gates = video.available, video.cv2_available
+    video.available = video.cv2_available = lambda: False
+    t0 = time.perf_counter()
+    try:
+        with media_route_clock(routes, planes):
+            for rel, plant in plants.items():
+                if rel.rsplit(".", 1)[1] not in video.VIDEO_EXTENSIONS:
+                    continue
+                out = str(out_dir / (rel.replace("/", "_") + ".webp"))
+                got = video.generate_video_thumbnail(str(root / rel), out)
+                if plant["thumb"] is None:
+                    require(got is None, f"phase 12: a self-hosted frame of {rel}")
+                    continue
+                check_slice2_thumbnail(rel, plant, out, {
+                    k[len(str(root)) + 1:]: v for k, v in planes.items()}, check_planes=True)
+    finally:
+        video.available, video.cv2_available = gates
+    return time.perf_counter() - t0
 
 
 def run_media_scan(lib, location_id: int, data_dir: str, owner, counts: dict, key: str):
-    """scan_location(backend="cuda", with_media=True) with the thumbnailer
-    running; the launch counts reset just before and read just after."""
+    """scan_location(backend="cuda"), the media job chained by its default,
+    with the thumbnailer running; the launch counts reset just before and
+    read just after."""
     import asyncio
 
     from spacedrive_tpu_torch.jobs.manager import JobManager
@@ -4724,7 +5284,7 @@ def run_media_scan(lib, location_id: int, data_dir: str, owner, counts: dict, ke
         actor = Thumbnailer(owner)
         actor.start()
         jobs = JobManager(services={"data_dir": data_dir, "thumbnailer": actor})
-        await locations.scan_location(jobs, lib, location_id, backend="cuda", with_media=True)
+        await locations.scan_location(jobs, lib, location_id, backend="cuda")
         await jobs.wait_idle()
         await actor.stop()
 
@@ -4739,7 +5299,8 @@ def run_media_scan(lib, location_id: int, data_dir: str, owner, counts: dict, ke
 
 
 def phase_media(counts: dict) -> dict:
-    """Phase 12: the media plane's first half on the card."""
+    """Phase 12: the media plane on the card, images and the second slice's
+    audio, video, SVG and PDF in one location."""
     import asyncio
 
     from spacedrive_tpu_torch.jobs.report import JobStatus
@@ -4749,8 +5310,8 @@ def phase_media(counts: dict) -> dict:
                                                             walk_ephemeral)
     from spacedrive_tpu_torch.media import imgdecode
     from spacedrive_tpu_torch.media.actor import Thumbnailer
+    from spacedrive_tpu_torch.media import video
     from spacedrive_tpu_torch.media.images import GENERIC_EXTENSIONS
-    from spacedrive_tpu_torch.media.processor import not_ported
     from spacedrive_tpu_torch.media.rawpreview import RAW_TIFF_EXTENSIONS
     from spacedrive_tpu_torch.media.thumbnail import scale_dimensions, thumbnail_path
     from spacedrive_tpu_torch.ops import blake3_cuda
@@ -4764,13 +5325,19 @@ def phase_media(counts: dict) -> dict:
         t0 = time.perf_counter()
         made = write_media_corpus(root, 61, executor)
         corpus_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plants = write_media_slice2(root, 62)
+        slice2_write_s = time.perf_counter() - t0
+        slice2_bytes = sum((root / rel).stat().st_size for rel in plants)
+        strict = not (video.available() or video.cv2_available())
         files = made["files"]
         lib = Libraries(data_dir).create("chip-smoke-media")
         owner = _MediaOwner(data_dir, [lib])
         try:
             location_id = locations.create_location(lib, str(root))
             stage_s: dict = {}
-            with media_stage_clock(stage_s):
+            routes: dict = {}
+            with media_stage_clock(stage_s), media_route_clock(routes, {}):
                 wall = run_media_scan(lib, location_id, data_dir, owner, counts, "media_scan")
             reports = {r.name: r for r in job_reports(lib)}
             ident, media = reports["file_identifier"], reports["media_processor"]
@@ -4783,13 +5350,10 @@ def phase_media(counts: dict) -> dict:
                         for p in (sizes[k:k + step] for k in range(0, len(sizes), step)))
             k1 = counts["media_scan"][blake3_cuda.FAST]
             require(k1 == pages, f"phase 12: K1 launched {k1} times for {pages} page classes")
-            require(media.status == JobStatus.COMPLETED_WITH_ERRORS,
-                    f"phase 12: media job ended {media.status.name}")
-            want_errors = sorted(not_ported(n.rsplit(".", 1)[1]) for n in MEDIA_SLICE2)
-            require(sorted(media.errors_text) == want_errors,
-                    f"phase 12: media job errors {media.errors_text[:4]} != {want_errors}")
+            require(media.status == JobStatus.COMPLETED and not media.errors_text,
+                    f"phase 12: media job ended {media.status.name}: {media.errors_text[:4]}")
             # Every row reads back what its writer planted.
-            rows = media_rows(lib, root)
+            rows, streams = media_rows(lib, root)
             want_rows = {rel: f[0] for rel, f in files.items() if f[0] is not None}
             require(set(rows) == set(want_rows),
                     f"phase 12: rows for {sorted(set(rows) ^ set(want_rows))[:4]}")
@@ -4809,9 +5373,9 @@ def phase_media(counts: dict) -> dict:
             for rel, (_, size, kind) in files.items():
                 path = thumbnail_path(data_dir, by_path[rel])
                 ext = rel.rsplit(".", 1)[1]
-                if size is None and kind != "slice2" and ext not in RAW_TIFF_EXTENSIONS:
+                if size is None and ext not in RAW_TIFF_EXTENSIONS:
                     size = imgdecode.decode_image((root / rel).read_bytes())[0].shape[1::-1]
-                if size is None:  # a RAW without a JPEG preview, or slice 2's
+                if size is None:  # a RAW without a JPEG preview
                     require(not os.path.exists(path), f"phase 12: a thumbnail of {rel}")
                     continue
                 require(os.path.exists(path), f"phase 12: no thumbnail of {rel}")
@@ -4819,13 +5383,15 @@ def phase_media(counts: dict) -> dict:
                 require(tuple(got) == scale_dimensions(*size),
                         f"phase 12: {rel} thumbnail {got} != {scale_dimensions(*size)}")
                 thumbs += 1
+            image_thumbs = thumbs
+            thumbs += check_media_slice2(plants, streams, data_dir, by_path, strict)
             require(thumbs == media.metadata["thumbnails_generated"],
                     f"phase 12: {thumbs} thumbnails checked, the job made "
                     f"{media.metadata['thumbnails_generated']}")
             # Native passes against plain, the encoder's bytes, the decode.
             rng = np.random.default_rng(12)
             small = sorted(rel for rel, f in files.items()
-                           if f[2] not in ("slice2", "jpeg_camera") and
+                           if f[2] != "jpeg_camera" and
                            rel.rsplit(".", 1)[1] in GENERIC_EXTENSIONS)
             sample = sorted(rng.choice(small, MEDIA_PLAIN_SAMPLE, replace=False).tolist())
             t0 = time.perf_counter()
@@ -4842,13 +5408,17 @@ def phase_media(counts: dict) -> dict:
             psnr = [c[2] for c in checked]
             require(min(psnr) >= MEDIA_PSNR_FLOOR,
                     f"phase 12: thumbnail PSNR {min(psnr):.2f} dB under {MEDIA_PSNR_FLOOR}")
+            self_routes: dict = {}
+            self_hosted_s = self_hosted_frames(plants, root, workdir / "self_hosted", self_routes)
             # A second scan writes nothing new.
-            n_rows = len(rows)
+            n_rows, n_streams = len(rows), len(streams)
             stamps = {p: os.stat(p).st_mtime_ns for p in Path(data_dir, "thumbnails").rglob(
                 "*.webp")}
             rescan_wall = run_media_scan(lib, location_id, data_dir, owner, counts,
                                          "media_rescan")
-            require(len(media_rows(lib, root)) == n_rows, "phase 12: the rescan wrote rows")
+            again = media_rows(lib, root)
+            require((len(again[0]), len(again[1])) == (n_rows, n_streams),
+                    "phase 12: the rescan wrote rows")
             require({p: os.stat(p).st_mtime_ns for p in Path(data_dir, "thumbnails").rglob(
                 "*.webp")} == stamps, "phase 12: the rescan rewrote thumbnails")
             # The ephemeral browse: K1 keys, the actor's ephemeral queue.
@@ -4879,18 +5449,26 @@ def phase_media(counts: dict) -> dict:
                 f"phase 12: the browse made {batch.generated} of {MEDIA_BROWSE} thumbnails")
         finally:
             lib.db.close()
-    n_images = sum(1 for f in files.values() if f[2] != "slice2")
+    n_images = len(files)
     by_format = collections.defaultdict(dict)
     n_by_format = collections.Counter()
     for rel, f in files.items():
-        if os.path.splitext(rel)[1] and f[2] != "slice2":
+        if os.path.splitext(rel)[1]:
             n_by_format[file_format(rel) if f[2] != "jpeg_camera" else "jpeg_camera"] += 1
     for (fmt, stage), s in sorted(stage_s.items()):
         by_format[fmt][stage] = s
     phase_wall = time.perf_counter() - t_all
     out = dict(wall_s=phase_wall, corpus_write_s=corpus_s, corpus_bytes=made["bytes"],
                images=n_images, files=len(files), job_wall_s=wall,
-               images_per_s=n_images / wall, rows=len(rows), thumbnails=thumbs,
+               images_per_s=n_images / wall, rows=len(rows), thumbnails=image_thumbs,
+               slice2=dict(files=len(plants), bytes=slice2_bytes, write_s=slice2_write_s,
+                           stream_rows=len(streams), thumbnails=thumbs - image_thumbs,
+                           chain="self_hosted" if strict else "opencv_or_ffmpeg",
+                           ms_per_call={k: 1e3 * s / n for k, (n, s) in sorted(routes.items())},
+                           calls={k: n for k, (n, _) in sorted(routes.items())},
+                           self_hosted=dict(wall_s=self_hosted_s, ms_per_call={
+                               k: 1e3 * s / n for k, (n, s) in sorted(self_routes.items())},
+                               calls={k: n for k, (n, _) in sorted(self_routes.items())})),
                media_phase_s=media.metadata, identifier_s=ident.date_completed - ident.date_started,
                stage_s_by_format={k: dict(v) for k, v in by_format.items()},
                stage_ms_per_image={stage: 1e3 * sum(s for (f, st), s in stage_s.items()
@@ -4948,9 +5526,19 @@ def main() -> int:
 
     stats, counts = {}, {}
     t_all = time.perf_counter()
+    phase_s = {}
+    last = [t_all]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+
     phase_build()
+    mark("build")
     phase_identify_step(bound, stats)
     phase_small_grid(stats)
+    mark("identify_step+small_grid")
     (ROOT / "spacedrive_tpu_torch" / "_build").mkdir(parents=True, exist_ok=True)
     # The corpus lives in the checkout, the library's SQLite files in the
     # system temp dir (a WAL's -shm file is a shared memory map).
@@ -4958,21 +5546,30 @@ def main() -> int:
             prefix="chip-smoke-", dir=ROOT / "spacedrive_tpu_torch" / "_build") as tmp, \
             tempfile.TemporaryDirectory(prefix="chip-smoke-lib-") as data_dir:
         large_files, phase4_ids, planted = phase_real_files(Path(tmp), counts)
+        mark("real_files")
         sums = phase_validate(Path(tmp), bound, counts, stats)
+        mark("validate")
         phase_ring(Path(tmp), large_files, counts)
+        mark("ring")
         lib = phase_scan(Path(tmp), data_dir, phase4_ids, planted, counts)
+        mark("scan")
         try:
             phase_validate_job(Path(tmp), lib, sums, counts)
         finally:
             lib.db.close()
+        mark("validate_job")
     # The near-dup corpora and their library in the system temp dir.
     with tempfile.TemporaryDirectory(prefix="chip-smoke-near-dup-") as tmp:
         near_dup = phase_near_dup_job(Path(tmp), counts)
+    mark("near_dup_job")
     scale = phase_near_dup_scale(bound, near_dup["B"]["objects_hashed"], counts)
+    mark("near_dup_scale")
     stats["hamming_near_mask"] = scale["mask"][f"{near_dup['B']['objects_hashed']}x2"]
     stats["hamming_near_counts"] = scale["counts"]["sweep"]
     phase_live(counts)
+    mark("live")
     phase_media(counts)
+    mark("media")
 
     kernels = []
     for name, replaces in REPLACES.items():
@@ -4989,7 +5586,7 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": s.get("library_ms"), "shape": s["shape"],
         })
     emit("forms", **{name: stats[name] for name in REPLACES})
-    emit("done", seconds=time.perf_counter() - t_all, launches_by_path=counts)
+    emit("done", seconds=time.perf_counter() - t_all, phase_s=phase_s, launches_by_path=counts)
     print(f"gpu: {gpu}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

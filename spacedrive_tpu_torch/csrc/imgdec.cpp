@@ -18,6 +18,9 @@
 //   vertical pass), which touches only each output's taps; the plain
 //   versions are imgdecode.resize_lanczos (the pHash grid, a float64 matrix
 //   product of the same fixed-point weights) and imgdecode.resize_image;
+//   and the same resample of an RGBA image as PIL runs it, premultiplied
+//   (RGBA -> RGBa, four bands, RGBa -> RGBA; the SVG rasterizer's canvas,
+//   plain version media/draw.resize_rgba);
 // - the thumbnailer's conversion of a decoded image to RGB (thumb_rgb).
 //
 // Built by ops/_build.py with g++ (-ffp-contract=off, so the weights' double
@@ -229,6 +232,38 @@ void sd_resample_lanczos_image(const uint8_t* in, int64_t h, int64_t w, int64_t 
 void sd_resample_lanczos(const uint8_t* in, int64_t h, int64_t w, int64_t edge,
                          uint8_t* out) {
   sd_resample_lanczos_image(in, h, w, 1, edge, edge, out);
+}
+
+// PIL's resize((out_w, out_h), LANCZOS) of an [h, w, 4] RGBA image: Convert.c
+// rgbA2rgba (each colour MULDIV255 by alpha), the four-band resample, then
+// rgba2rgbA (255 * c / alpha, truncated and clipped, where alpha is neither
+// 0 nor 255). A size that is the image's own is a copy.
+void sd_resample_lanczos_rgba(const uint8_t* in, int64_t h, int64_t w, int64_t out_h,
+                              int64_t out_w, uint8_t* out) {
+  if (h == out_h && w == out_w) {
+    std::memcpy(out, in, (size_t)(h * w * 4));
+    return;
+  }
+  std::vector<uint8_t> pre((size_t)(h * w * 4));
+  for (int64_t i = 0; i < h * w; ++i) {
+    const uint8_t* p = in + i * 4;
+    uint8_t* q = &pre[(size_t)(i * 4)];
+    for (int b = 0; b < 3; ++b) {
+      const uint32_t t = (uint32_t)p[b] * p[3] + 128u;
+      q[b] = (uint8_t)(((t >> 8) + t) >> 8);
+    }
+    q[3] = p[3];
+  }
+  sd_resample_lanczos_image(pre.data(), h, w, 4, out_h, out_w, out);
+  for (int64_t i = 0; i < out_h * out_w; ++i) {
+    uint8_t* q = out + i * 4;
+    const uint32_t a = q[3];
+    if (a == 0 || a == 255) continue;
+    for (int b = 0; b < 3; ++b) {
+      const uint32_t v = 255u * q[b] / a;
+      q[b] = (uint8_t)(v > 255u ? 255u : v);
+    }
+  }
 }
 
 // What the thumbnailer does to a decoded image before its resize

@@ -11,9 +11,10 @@ resume, cancel and cold-resume through ``jobs/manager.py``.
 
 The identifier's ``backend`` defaults to ``"cuda"`` (the hand-written
 BLAKE3 kernel on the card) and the chain is refused at once where CUDA is
-absent. ``with_media`` defaults to False here (True in the JAX package)
-until the media plane's second half (audio, video, SVG, PDF) is ported;
-the media job's thumbnails need ``data_dir`` in the manager's services.
+absent. ``with_media`` defaults to True, as in the JAX package: the media
+job's rows and thumbnails (images, audio and video probes, video frames,
+cover art, SVG, PDF) follow the identifier; its thumbnails need
+``data_dir`` in the manager's services.
 The sub-path rescan chains no media job, in the JAX package as here, so it
 refuses ``with_media=True``.
 """
@@ -72,7 +73,7 @@ def create_location(library, path: str, indexer_rule_ids: Sequence[int] = (),
 
 
 async def scan_location(jobs: JobManager, library, location_id: int,
-                        backend: str = "cuda", with_media: bool = False) -> bytes:
+                        backend: str = "cuda", with_media: bool = True) -> bytes:
     """Full rescan: the indexer → identifier chain, and the media processor
     after it with `with_media` (location/mod.rs:417-445). Returns the
     indexer's job id; ``jobs.wait_idle()`` waits for the chain."""

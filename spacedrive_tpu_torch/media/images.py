@@ -12,7 +12,12 @@ returns ``imgdecode.decode_image``'s (pixels, mode):
   else the EXIF IFD1 thumbnail; ``media/isobmff.py``), as the JAX package
   does where no HEIF plugin is installed (neither this port's hosts nor
   the JAX package's have one);
-- SVG and PDF are the second media slice's and raise ``UnsupportedFormat``.
+- SVG through the port's rasterizer (``media/svg.py``), RGBA at
+  ``SVG_TARGET_PX``, the JAX ``render_svg``'s pixels;
+- PDF through pypdfium2 where it imports (neither this port's hosts nor
+  the JAX package's have it), else the page's largest image stream
+  (``media/pdf.py``: DCTDecode through the port's JPEG decoder,
+  FlateDecode as RGB or L).
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import numpy as np
 
 MIB = 1_048_576
 MAXIMUM_FILE_SIZE = 192 * MIB     # consts.rs:9
+SVG_TARGET_PX = 262_144.0         # consts.rs:31
+PDF_RENDER_WIDTH = 992            # consts.rs:37
 
 GENERIC_EXTENSIONS = {
     "apng", "bmp", "dib", "ff", "gif", "ico", "jpg", "jpeg", "png",
@@ -47,6 +54,15 @@ def _check_size(path: str) -> None:
     if os.path.getsize(path) > MAXIMUM_FILE_SIZE:
         raise ImageHandlerError(
             f"{path}: exceeds maximum image size (192 MiB)")
+
+
+def _pdf_available() -> bool:
+    try:
+        import pypdfium2  # noqa: F401
+
+        return True
+    except ImportError:
+        return False
 
 
 def format_image(path: str, *, native: bool = True) -> Tuple[np.ndarray, str]:
@@ -73,6 +89,23 @@ def format_image(path: str, *, native: bool = True) -> Tuple[np.ndarray, str]:
                 f"{ext}: no embedded JPEG item or EXIF thumbnail "
                 "(full HEVC decode unavailable in this runtime)")
         return decode_image(jpeg, native=native)
-    if ext in SVG_EXTENSIONS or ext in PDF_EXTENSIONS:
-        raise UnsupportedFormat(f"{ext}: not ported yet (media slice 2)")
+    if ext in SVG_EXTENSIONS:
+        from .svg import render_svg
+
+        return render_svg(path, target_px=SVG_TARGET_PX, native=native), "RGBA"
+    if ext in PDF_EXTENSIONS:
+        if _pdf_available():
+            import pypdfium2
+
+            pdf = pypdfium2.PdfDocument(path)
+            page = pdf[0]
+            scale = PDF_RENDER_WIDTH / page.get_size()[0]
+            bitmap = page.render(scale=scale, rev_byteorder=True)
+            return bitmap.to_numpy(), bitmap.mode
+        from .pdf import PdfImageError, pdf_first_image
+
+        try:
+            return pdf_first_image(path, native=native)
+        except PdfImageError as e:
+            raise UnsupportedFormat(str(e)) from e
     raise UnsupportedFormat(f"unsupported image extension: {ext!r}")

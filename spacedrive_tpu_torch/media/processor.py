@@ -4,42 +4,26 @@ Port of ``spacedrive_tpu/media/processor.py`` (upstream
 media_processor/job.rs): the location's media files in steps of
 BATCH_SIZE = 10, EXIF into ``media_data`` rows (``media/exif.py``) and WebP
 thumbnails keyed by cas_id (``media/thumbnail.py``, through the manager's
-thumbnailer where it has one, else inline). The row selection and the
-metadata keys are the JAX job's, so a library reads the same to both.
-
-Audio and video rows (their probes and frames), cover art, SVG and PDF are
-the second media slice's: the JAX job writes their rows and thumbnails,
-the port records one error a file, ``"<ext>: not ported yet (media slice
-2)"``, and writes nothing for it.
+thumbnailer where it has one, else inline). An audio or video file's row
+is its probe (``media/avmetadata.probe_media``) as ``stream_data`` JSON.
+The row selection and the metadata keys are the JAX job's, so a library
+reads the same to both.
 """
 
 from __future__ import annotations
 
 import asyncio
+import json
 from typing import List, Optional
 
 from ..jobs.job import EarlyFinish, JobContext, StatefulJob, StepOutcome, register_job
 from ..locations.paths import IsolatedPath
 from ..store import statements
-from .avmetadata import probeable_extensions
+from .avmetadata import probe_media, probeable_extensions
 from .exif import MEDIA_DATA_EXTENSIONS, extract_media_data
-from .images import PDF_EXTENSIONS, SVG_EXTENSIONS
 from .thumbnail import ensure_thumbnail_dir, generate_thumbnail, thumbnailable_extensions
 
 BATCH_SIZE = 10  # media_processor/job.rs:34
-
-
-def slice2_extensions() -> set:
-    """The selected extensions whose rows or thumbnails the port does not
-    write yet: audio and video (probes, frames, cover art), SVG and PDF."""
-    from .avmetadata import COVER_EXTENSIONS, H264_TS_EXTENSIONS, VIDEO_EXTENSIONS
-
-    return (probeable_extensions() | VIDEO_EXTENSIONS | COVER_EXTENSIONS | H264_TS_EXTENSIONS
-            | SVG_EXTENSIONS | PDF_EXTENSIONS)
-
-
-def not_ported(ext: str) -> str:
-    return f"{ext}: not ported yet (media slice 2)"
 
 
 @register_job
@@ -84,25 +68,29 @@ class MediaProcessorJob(StatefulJob):
 
     def _exif_step(self, ctx: JobContext, data, step) -> StepOutcome:
         av_exts = probeable_extensions()
-        later = slice2_extensions()
         db = ctx.db
         errors: List[str] = []
         mds: List[dict] = []
         for r in step["rows"]:
             ext = (r["extension"] or "").lower()
-            if ext in later and ext not in MEDIA_DATA_EXTENSIONS:
-                errors.append(not_ported(ext))
-                continue
-            if ext not in MEDIA_DATA_EXTENSIONS and ext not in av_exts:
+            is_av = ext in av_exts
+            if ext not in MEDIA_DATA_EXTENSIONS and not is_av:
                 continue
             full = self._full_path(data, r)
             if db.run("media.data_exists", (r["object_id"],)) is not None:
                 continue
             try:
-                md = extract_media_data(full)
-                if md is None:
-                    continue
-                md["object_id"] = r["object_id"]
+                if is_av:
+                    info = probe_media(full)
+                    if info is None:
+                        continue
+                    md = {"object_id": r["object_id"],
+                          "stream_data": json.dumps(info.to_dict())}
+                else:
+                    md = extract_media_data(full)
+                    if md is None:
+                        continue
+                    md["object_id"] = r["object_id"]
                 mds.append(md)
             except Exception as e:
                 errors.append(f"media_data {full}: {e}")
@@ -129,11 +117,10 @@ class MediaProcessorJob(StatefulJob):
         if not data_dir:
             return
         exts = thumbnailable_extensions()
-        later = slice2_extensions()
         entries = []
         for r in step["rows"]:
             ext = (r["extension"] or "").lower()
-            if r["cas_id"] and ext in exts and ext not in later:
+            if r["cas_id"] and ext in exts:
                 entries.append((r["cas_id"], self._full_path(data, r)))
         if not entries:
             return

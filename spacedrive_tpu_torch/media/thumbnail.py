@@ -14,6 +14,7 @@ thumbnail's size (``native.resample_image``) and its own VP8 encoder
 
 from __future__ import annotations
 
+import gzip
 import math
 import os
 import zlib
@@ -23,10 +24,9 @@ import numpy as np
 
 from .. import persist
 from . import imgdecode, webpenc
-from .avmetadata import (COVER_EXTENSIONS, H264_TS_EXTENSIONS, VIDEO_EXTENSIONS,
-                         cv2_available, ffmpeg_available)
 
 TARGET_PX = 262144.0    # thumbnail/mod.rs:113
+TARGET_QUALITY = webpenc.QUALITY
 WEBP_EXTENSION = "webp"
 VERSION_FILE = "version.txt"
 THUMBNAIL_CACHE_VERSION = 1
@@ -45,10 +45,12 @@ def thumbnailable_extensions() -> set:
     containers, TIFF-structured RAW and H.264 transport streams always,
     every video container when ffmpeg or OpenCV is present."""
     from .rawpreview import RAW_TIFF_EXTENSIONS
+    from .video import (_COVER_EXTENSIONS, _H264_TS_EXTENSIONS, VIDEO_EXTENSIONS, available,
+                        cv2_available)
 
-    exts = (set(THUMBNAILABLE_EXTENSIONS) | COVER_EXTENSIONS | RAW_TIFF_EXTENSIONS
-            | H264_TS_EXTENSIONS)
-    if ffmpeg_available() or cv2_available():
+    exts = (set(THUMBNAILABLE_EXTENSIONS) | _COVER_EXTENSIONS | RAW_TIFF_EXTENSIONS
+            | _H264_TS_EXTENSIONS)
+    if available() or cv2_available():
         exts |= VIDEO_EXTENSIONS
     return exts
 
@@ -115,8 +117,12 @@ def generate_thumbnail(input_path: str, data_dir: str, cas_id: str, *,
     if os.path.exists(out):
         return out
     ext = os.path.splitext(input_path)[1].lstrip(".").lower()
+    from .video import VIDEO_EXTENSIONS, generate_video_thumbnail
+
     if ext in VIDEO_EXTENSIONS:
-        return None  # video frames: the second media slice
+        # generate_video_thumbnail picks ffmpeg / OpenCV / the self-hosted
+        # decoders / cover art / None itself.
+        return generate_video_thumbnail(input_path, out, native=native)
     from .images import ImageHandlerError, format_image
     from .rawpreview import RAW_TIFF_EXTENSIONS, extract_preview
 
@@ -129,8 +135,10 @@ def generate_thumbnail(input_path: str, data_dir: str, cas_id: str, *,
         else:
             pixels, mode = format_image(input_path, native=native)
         return encode_webp(pixels, mode, out, native=native)
-    except (imgdecode.UnsupportedImage, ImageHandlerError, zlib.error, FileNotFoundError,
-            IsADirectoryError, PermissionError):
+    except (ValueError, SyntaxError, EOFError, gzip.BadGzipFile, zlib.error, ImageHandlerError,
+            FileNotFoundError, IsADirectoryError, PermissionError):
+        # A file the decoders refuse, an SVG that does not parse (ValueError
+        # covers imgdecode.UnsupportedImage, SyntaxError the XML parser's).
         return None
 
 

@@ -201,6 +201,21 @@ def resample_image(pixels: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     return out
 
 
+def resample_rgba(rgba: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """[h, w, 4] RGBA uint8 → PIL's ``resize(size, LANCZOS)`` of an RGBA
+    image at `size` = (width, height): premultiplied, resampled, back. The
+    plain version is ``media.draw.resize_rgba(..., native=False)``."""
+    rgba = np.ascontiguousarray(rgba, dtype=np.uint8)
+    h, w = rgba.shape[:2]
+    out_w, out_h = (int(v) for v in size)
+    if rgba.ndim != 3 or rgba.shape[2] != 4 or min(h, w, out_w, out_h) < 1:
+        raise ValueError(f"resample_rgba: {rgba.shape} to {size}")
+    out = np.empty((out_h, out_w, 4), np.uint8)
+    _build.library("imgdec").sd_resample_lanczos_rgba(
+        _ptr(rgba, ctypes.c_uint8), h, w, out_h, out_w, _ptr(out, ctypes.c_uint8))
+    return out
+
+
 def thumb_rgb(pixels: np.ndarray, kind: int) -> np.ndarray:
     """[h, w] or [h, w, c] pixels → [h, w, 3] uint8 RGB by ``sd_thumb_rgb``'s
     `kind` (``media.imgdecode.THUMB_KINDS``). The plain version is

@@ -92,6 +92,8 @@ _SIGNATURES = {
             [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], None),
         "sd_resample_lanczos_image": (
             [_u8p] + [ctypes.c_int64] * 5 + [_u8p], None),
+        "sd_resample_lanczos_rgba": (
+            [_u8p] + [ctypes.c_int64] * 4 + [_u8p], None),
         "sd_thumb_rgb": (
             [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
         "sd_gif_lzw": (

@@ -3,7 +3,8 @@
 Port of the part of ``spacedrive_tpu/persist.py`` the media plane uses:
 ``atomic_write`` (a same-directory tmp file, flushed, fsynced where the
 artifact's policy says so, renamed into place, its directory fsynced where
-the policy says so) and the two artifacts it writes, ``media.thumbnail``
+the policy says so), ``seal`` (the same tail for a tmp file another
+program streamed: ffmpeg's video frame) and the two artifacts they write, ``media.thumbnail``
 and ``media.thumbs_version``, under the JAX package's names and policies.
 The rest of that module (the WAL writers, scratch trees, crash points and
 the artifact table) is not ported yet.
@@ -69,3 +70,21 @@ def atomic_write(name: str, path: str, data) -> str:
     if a.fsync == "always":
         _fsync_dir(os.path.dirname(path))
     return path
+
+
+def seal(name: str, tmp_path: str, final_path: str) -> str:
+    """Seal a streamed body: the caller (or a program it ran) wrote
+    `tmp_path`; this applies artifact `name`'s tail — fsync(file) per
+    policy → atomic replace → fsync(dir) — so a crash never leaves a
+    truncated file that passes for a valid artifact."""
+    a = artifact(name)
+    if a.fsync in ("always", "file-only"):
+        fd = os.open(tmp_path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+    os.replace(tmp_path, final_path)
+    if a.fsync == "always":
+        _fsync_dir(os.path.dirname(final_path))
+    return final_path

@@ -183,7 +183,7 @@ def _scan(data_dir, root, backend, device_batch=None):
     async def main():
         jobs = JobManager()
         if device_batch is None:
-            await locations.scan_location(jobs, lib, loc, backend=backend)
+            await locations.scan_location(jobs, lib, loc, backend=backend, with_media=False)
         else:
             await JobBuilder(IndexerJob(location_id=loc)).queue_next(FileIdentifierJob(
                 location_id=loc, backend=backend, device_batch=device_batch)).spawn(jobs, lib)
@@ -561,3 +561,44 @@ def test_scan_with_media_on_the_card_matches_plain(cuda, tmp_path):
     sizes = [p.stat().st_size for p in root.iterdir()]
     classes = any(s > MINIMUM_FILE_SIZE for s in sizes) + any(s <= MINIMUM_FILE_SIZE for s in sizes)
     assert launches[blake3_cuda.FAST] == classes == sum(launches.values())
+
+
+def test_the_default_scan_chain_on_the_card_matches_plain(cuda, tmp_path, monkeypatch):
+    """scan_location with its default (the media job chained): audio and
+    video probes, video frames, cover art, SVG and PDF thumbnails from the
+    harness's own writers, on the card and with backend="plain", equal."""
+    import chip_smoke
+
+    from spacedrive_tpu_torch.jobs.manager import JobManager
+    from spacedrive_tpu_torch.library import Libraries
+    from spacedrive_tpu_torch.locations import manager as locations
+
+    root = tmp_path / "tree"
+    monkeypatch.setattr(chip_smoke, "MEDIA_VIDEO_1080", (320, 180))
+    plants = chip_smoke.write_media_slice2(root, 9)
+
+    def run(backend):
+        data_dir = tmp_path / backend
+        lib = Libraries(str(data_dir)).create("media")
+        loc = locations.create_location(lib, str(root))
+
+        async def main():
+            jobs = JobManager(services={"data_dir": str(data_dir)})
+            await locations.scan_location(jobs, lib, loc, backend=backend)
+            await jobs.wait_idle()
+
+        asyncio.run(main())
+        rows = {r["cas_id"]: r["stream_data"] for r in lib.db.query(
+            "SELECT fp.cas_id, md.stream_data FROM media_data md "
+            "JOIN file_path fp ON fp.object_id = md.object_id")}
+        thumbs = {p.name: p.read_bytes() for p in (data_dir / "thumbnails").rglob("*.webp")}
+        statuses = [r["status"] for r in lib.db.query("SELECT status FROM job ORDER BY rowid")]
+        lib.db.close()
+        return rows, thumbs, statuses
+
+    blake3_cuda.reset_launches()
+    on_card = run("cuda")
+    assert blake3_cuda.launches[blake3_cuda.FAST] > 0
+    assert on_card == run("plain") and on_card[2] == [2, 2, 2]
+    assert len(on_card[0]) >= sum(p["row"] is not None for p in plants.values())
+    assert len(on_card[1]) >= sum(p["thumb"] is not None for p in plants.values())

@@ -428,7 +428,7 @@ def test_each_job_resumes_to_the_straight_runs_library(tmp_path, monkeypatch, ki
         async def main():
             m = JobManager()
             if kind != "indexer":
-                await locations.scan_location(m, lib, loc, backend="plain")
+                await locations.scan_location(m, lib, loc, backend="plain", with_media=False)
                 await m.wait_idle()
             if paused:
                 steps[0] = 0

@@ -1,11 +1,14 @@
 """The port's media plane end to end against the JAX package's.
 
-``scan_location(with_media=True)`` through both packages over one tree
-(the JAX identifier with ``backend="numpy"``, the port's with ``"plain"``
-on the CPU): equal ``media_data`` rows matched by cas_id, the same
-thumbnail paths and sizes, the same job steps and counts; a second scan
-writes nothing; the media job pauses and cold-resumes; the thumbnailer
-actor's batches, coalescing, shedding, clean-up and cache versioning, as
+``scan_location`` (``with_media`` by default) through both packages over
+one tree of images, audio, video, cover art, SVG and PDF (the JAX
+identifier with ``backend="numpy"``, the port's with ``"plain"`` on the
+CPU): equal ``media_data`` rows matched by cas_id (EXIF and
+``stream_data``), the same thumbnail paths and sizes, the same grids
+handed to the encoders, the same job steps, counts and status, with
+OpenCV where it imports and without it; a second scan writes nothing;
+the media job pauses and cold-resumes; the thumbnailer actor's batches,
+coalescing, shedding, clean-up and cache versioning, as
 ``tests/test_thumbnailer.py`` holds the JAX actor to them, with a small
 stand-in for the node the port does not have yet.
 """
@@ -32,9 +35,16 @@ from spacedrive_tpu_torch.locations.non_indexed import (queue_ephemeral_thumbnai
                                                         walk_ephemeral)
 from spacedrive_tpu_torch.media import actor as actor_mod
 from spacedrive_tpu_torch.media.actor import Thumbnailer
-from spacedrive_tpu_torch.media.processor import MediaProcessorJob, not_ported
+from spacedrive_tpu.media import thumbnail as jax_thumbnail
+from spacedrive_tpu.media import video as jax_video
+from spacedrive_tpu_torch.media import thumbnail as port_thumbnail
+from spacedrive_tpu_torch.media import video, webpenc
+from spacedrive_tpu_torch.media.processor import MediaProcessorJob
 from spacedrive_tpu_torch.media.thumbnail import (THUMBNAIL_CACHE_VERSION, scale_dimensions,
                                                   thumbnail_path)
+from test_audio_metadata import make_wav
+from test_avmeta import make_mkv_with_attachment, make_mp4_with_cover
+from test_torch_svg_pdf import DOCS
 
 
 @pytest.fixture(autouse=True)
@@ -64,9 +74,42 @@ def _exif(seed: int) -> bytes:
     return ex.tobytes()
 
 
+FIX = os.path.join(os.path.dirname(__file__), "fixtures")
+# The second media slice's files by relative path, and their writers.
+SLICE2 = {
+    "audio/voice.wav": lambda p: make_wav(p, seconds=0.5, rate=8000, channels=1),
+    "audio/song.mp3": lambda p: open(p, "wb").write(b"\xff\xfb" + bytes(400)),
+    "video/cover.mp4": make_mp4_with_cover,
+    "video/cover.mkv": make_mkv_with_attachment,
+    "video/ipcm.mp4": lambda p: shutil.copy(os.path.join(FIX, "h264", "gradient_ipcm.mp4"), p),
+    "video/cavlc.m2ts": lambda p: shutil.copy(os.path.join(FIX, "h264", "mixed_cavlc.m2ts"), p),
+    "video/hevc.mp4": lambda p: shutil.copy(os.path.join(FIX, "video", "hevc.mp4"), p),
+    "video/junk.mp4": lambda p: open(p, "wb").write(bytes(600)),
+    "video/clip.avi": lambda p: _mjpeg(p),
+    "docs/art.svg": lambda p: open(p, "w").write(DOCS["shapes.svg"]),
+    "docs/broken.svg": lambda p: open(p, "w").write("<svg"),
+    "docs/dct.pdf": lambda p: shutil.copy(os.path.join(FIX, "dct.pdf"), p),
+    "docs/flate.pdf": lambda p: shutil.copy(os.path.join(FIX, "flate.pdf"), p),
+    "docs/empty.pdf": lambda p: open(p, "wb").write(b"%PDF-1.4\n" + bytes(300)),
+}
+
+
+def _mjpeg(path):
+    import io
+
+    from spacedrive_tpu_torch.media.mjpeg import write_mjpeg_avi
+
+    frames = []
+    for k in range(10):
+        buf = io.BytesIO()
+        Image.fromarray(_scene(60, 80, k)).save(buf, "JPEG", quality=80)
+        frames.append(buf.getvalue())
+    write_mjpeg_avi(path, frames)
+
+
 def _corpus(root) -> list:
-    """Images of every kind the job meets, and three files of the second
-    media slice."""
+    """Images of every kind the job meets, and the second media slice's
+    audio, video, SVG and PDF files."""
     os.makedirs(os.path.join(root, "sub"))
     made = []
 
@@ -84,10 +127,10 @@ def _corpus(root) -> list:
     save("sub/tiny.png", _scene(5, 7, 7), "PNG")
     save("sub/wide.png", _scene(1, 900, 8), "PNG")
     save("g.avif", _scene(24, 32, 9), "AVIF", exif=_exif(9))
-    for name, payload in (("song.mp3", b"\xff\xfb" + bytes(400)), ("clip.mp4", bytes(600)),
-                          ("doc.pdf", b"%PDF-1.4\n" + bytes(300))):
-        with open(os.path.join(root, name), "wb") as f:
-            f.write(payload)
+    for name, write in SLICE2.items():
+        os.makedirs(os.path.join(root, os.path.dirname(name)), exist_ok=True)
+        write(os.path.join(root, name))
+        made.append(name)
     return made
 
 
@@ -117,7 +160,7 @@ class _Run:
 
     def rows(self) -> dict:
         return {r["cas_id"]: (r["resolution"], r["media_date"], r["media_location"],
-                              r["camera_data"])
+                              r["camera_data"], r["stream_data"])
                 for r in self.lib.db.query(
                     "SELECT fp.cas_id, md.* FROM media_data md "
                     "JOIN file_path fp ON fp.object_id = md.object_id")}
@@ -148,32 +191,75 @@ class _Run:
             "SELECT errors_text FROM job WHERE name = 'media_processor'"))
 
 
-def test_the_chain_writes_the_jax_packages_rows_and_thumbnails(tmp_path):
+def _grids(monkeypatch) -> tuple:
+    """{thumbnail file name: the RGB grid handed to the encoder} of each
+    package: what PIL's save receives inside the JAX encode_webp, what the
+    port's encode_webp hands its encoder."""
+    jax, port, current = {}, {}, {}
+    real_save, real_jax, real_port = Image.Image.save, jax_thumbnail.encode_webp, \
+        port_thumbnail.encode_webp
+    real_encode = webpenc.encode
+
+    def save(self, fp, format=None, **kw):
+        if format == "WEBP" and "jax" in current:
+            jax[current["jax"]] = np.asarray(self.convert("RGB")).copy()
+        return real_save(self, fp, format, **kw)
+
+    def jax_encode_webp(im, out_path, *a, **kw):
+        current["jax"] = os.path.basename(out_path)
+        return real_jax(im, out_path, *a, **kw)
+
+    def port_encode_webp(pixels, mode, out_path, *a, **kw):
+        current["port"] = os.path.basename(out_path)
+        return real_port(pixels, mode, out_path, *a, **kw)
+
+    def encode(rgb, **kw):
+        port[current["port"]] = rgb.copy()
+        return real_encode(rgb, **kw)
+
+    monkeypatch.setattr(Image.Image, "save", save)
+    monkeypatch.setattr(jax_thumbnail, "encode_webp", jax_encode_webp)
+    monkeypatch.setattr(port_thumbnail, "encode_webp", port_encode_webp)
+    monkeypatch.setattr(webpenc, "encode", encode)
+    return jax, port
+
+
+def _chain(tmp_path, monkeypatch, routes: dict) -> None:
     root = str(tmp_path / "tree")
     _corpus(root)
     jax, port = _Run(tmp_path, root, port=False), _Run(tmp_path, root, port=True)
+    jax_grids, port_grids = _grids(monkeypatch)
     try:
         jax.scan()
         port.scan()
-        assert port.rows() == jax.rows() and len(port.rows()) == 7
-        assert port.thumbs() == jax.thumbs() and len(port.thumbs()) == 8  # not the AVIF
-        for rel, size in port.thumbs().items():
-            cas = os.path.basename(rel)[:-5]
-            src = port.lib.db.query_one("SELECT * FROM file_path WHERE cas_id = ?", (cas,))
-            name = f"{src['name']}.{src['extension']}"
-            path = os.path.join(root, src["materialized_path"].lstrip("/"), name)
-            with Image.open(path) as im:
-                assert size == scale_dimensions(*im.size)
-        # The same steps and counts; the port's run also names the files it
-        # leaves to the second media slice.
-        assert [r[1:] for r in port.media_reports()] == [r[1:] for r in jax.media_reports()]
-        assert port.media_reports()[0][0] == int(JobStatus.COMPLETED_WITH_ERRORS)
-        for ext in ("mp3", "mp4", "pdf"):
-            assert not_ported(ext) in port.errors()
+        rows = port.rows()
+        assert rows == jax.rows()
+        by_name = {r["cas_id"]: f"{r['materialized_path']}{r['name']}.{r['extension']}"
+                   for r in port.lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")}
+        streams = {by_name[c][1:] for c, row in rows.items() if row[4] is not None}
+        assert streams == routes["streams"]
+        assert len(rows) == 7 + len(streams)
+        thumbs = port.thumbs()
+        assert thumbs == jax.thumbs()
+        named = {by_name[os.path.basename(rel)[:-5]][1:] for rel in thumbs}
+        assert {n for n in named if "/" in n and not n.startswith("sub/")} == routes["thumbs"]
+        assert len(thumbs) == 8 + len(routes["thumbs"])  # not the AVIF
+        for rel, size in thumbs.items():
+            name = by_name[os.path.basename(rel)[:-5]]
+            if name.rsplit(".", 1)[1] in ("png", "jpg", "webp", "tiff", "gif", "bmp"):
+                with Image.open(os.path.join(root, name.lstrip("/"))) as im:
+                    assert size == scale_dimensions(*im.size)
+        # Every encoder got the JAX package's grid.
+        assert sorted(port_grids) == sorted(jax_grids) == sorted(
+            os.path.basename(r) for r in thumbs)
+        for k, grid in jax_grids.items():
+            assert port_grids[k].shape == grid.shape and np.array_equal(port_grids[k], grid), k
+        # The same steps, counts and status; nothing left as not ported.
+        assert port.media_reports() == jax.media_reports()
+        assert "not ported" not in port.errors()
         # A second scan writes nothing: no row, no thumbnail rewritten.
         stamps = {p: os.stat(os.path.join(port.data, "thumbnails", p)).st_mtime_ns
                   for p in port.thumbs()}
-        rows = port.rows()
         port.scan()
         assert port.rows() == rows
         assert {p: os.stat(os.path.join(port.data, "thumbnails", p)).st_mtime_ns
@@ -182,6 +268,38 @@ def test_the_chain_writes_the_jax_packages_rows_and_thumbnails(tmp_path):
     finally:
         jax.lib.db.close()
         port.lib.db.close()
+
+
+SELF_HOSTED = {
+    "streams": {"audio/voice.wav", "video/cover.mp4", "video/cover.mkv", "video/ipcm.mp4",
+                "video/hevc.mp4", "video/clip.avi"},
+    "thumbs": {"video/cover.mp4", "video/cover.mkv", "video/ipcm.mp4", "video/cavlc.m2ts",
+               "video/clip.avi", "docs/art.svg", "docs/dct.pdf", "docs/flate.pdf"},
+}
+
+
+def test_the_chain_writes_the_jax_packages_rows_and_thumbnails(tmp_path, monkeypatch):
+    """In this runtime: OpenCV, where it imports, probes and decodes the
+    containers the parsers leave."""
+    if not video.cv2_available():
+        pytest.skip("OpenCV absent: the self-hosted test below covers the chain")
+    _chain(tmp_path, monkeypatch, {
+        "streams": SELF_HOSTED["streams"] | {"video/cavlc.m2ts"},
+        "thumbs": SELF_HOSTED["thumbs"] | {"video/hevc.mp4"}})
+
+
+def test_the_chain_without_opencv_takes_the_self_hosted_routes(tmp_path, monkeypatch):
+    """As on a host without OpenCV or ffmpeg (the card's): the container
+    parsers, MJPEG, H.264, cover art, SVG and PDF."""
+    for module in (jax_video, video):
+        monkeypatch.setattr(module, "cv2_available", lambda: False)
+        monkeypatch.setattr(module, "available", lambda: False)
+    from spacedrive_tpu.media import avmetadata as jax_av
+    from spacedrive_tpu_torch.media import avmetadata
+
+    monkeypatch.setattr(jax_av, "ffmpeg_available", lambda: False)
+    monkeypatch.setattr(avmetadata, "ffmpeg_available", lambda: False)
+    _chain(tmp_path, monkeypatch, SELF_HOSTED)
 
 
 def test_the_port_reads_a_thumbnail_cache_the_jax_job_wrote(tmp_path):
@@ -226,7 +344,7 @@ def test_the_media_job_pauses_and_cold_resumes(tmp_path, monkeypatch):
 
     async def first():
         jobs = JobManager(services={"data_dir": data})
-        await locations.scan_location(jobs, lib, loc, backend="plain")
+        await locations.scan_location(jobs, lib, loc, backend="plain", with_media=False)
         await jobs.wait_idle()
         holder["jobs"] = jobs
         holder["jid"] = await jobs.ingest(lib, MediaProcessorJob(location_id=loc))

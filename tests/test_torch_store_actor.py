@@ -327,7 +327,7 @@ def test_a_scan_beside_three_writers_matches_the_jax_package(tmp_path):
 
     async def main():
         jobs = JobManager()
-        await locations.scan_location(jobs, lib, loc, backend="plain")
+        await locations.scan_location(jobs, lib, loc, backend="plain", with_media=False)
         await asyncio.wait_for(jobs.wait_idle(), 30)
 
     threads = [threading.Thread(target=writer, args=(k,)) for k in range(3)]

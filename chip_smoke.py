@@ -23,8 +23,8 @@ with CUDA events. Phases:
 4. real files — a 16384-file corpus through
    ``staging.cas_ids_for_files(backend="cuda")`` (the identify main path:
    the native C++ staging plane writes each size class into a pinned page,
-   one non-blocking copy, K1), against ``backend="plain"``, the oracle, and
-   duplicate grouping; an uncounted second run splits its time into native
+   one non-blocking copy, K1), against ``backend="plain"`` on every 4th
+   file and the odd ones, the oracle, and duplicate grouping; an uncounted second run splits its time into native
    staging, pinned H2D, hash and D2H + format, beside the Python readers
    and host packing that the plain path still runs;
 5. validate — ``validator.checksums_for_files`` on a small-file page and a
@@ -55,7 +55,7 @@ with CUDA events. Phases:
    ``verify`` mode (no mismatch);
 9. near-dup job — two image locations written by the harness's own PNG,
    BMP, JPEG, GIF, ICO, TIFF and WebP writers in the system temp dir: A,
-   about 6 000 images of 48–800 px a side (ICO and WebP singles at most
+   about 4 400 images of 48–800 px a side (ICO and WebP singles at most
    256), every PNG colour type, depth and row filter, Adam7 and 16-bit
    PNG, BMP at 8, 24 and 32 bits, JPEG at 4:2:0, 4:2:2, 4:4:4, gray,
    progressive (spectral selection, DC successive approximation), with
@@ -75,7 +75,7 @@ with CUDA events. Phases:
    ``scan_location(backend="cuda", with_media=False)``, then ``NearDupDetectorJob(backend=
    "cuda")`` decodes on the host (native C++ decoders), pHashes 256-image
    steps on the card and runs the exact pairs search: the pyramid
-   (``hamming_near_counts`` launches) at A's ~5 900 digests, one
+   (``hamming_near_counts`` launches) at A's ~4 300 digests, one
    ``hamming_near_mask`` launch at B's ~1 950. Checked: every kind is
    written; the job's errors are exactly the refused files; the native
    grids equal the plain decoder's on a 1024-file sample holding every
@@ -137,13 +137,28 @@ with CUDA events. Phases:
    stage (decode, thumb_rgb, resize, encode, write) by format, and the ms
    a call of each second-slice route (probe by extension, frame route,
    H.264 decode by frame size, SVG render, PDF stream);
-13. the kernel table as one JSON line, launches summed over phases 4-12,
+13. sync — run right after phase 8, on phase 7's library: node A
+   (``Node(data_dir)``, the library's data dir) and node B (empty, in
+   the system temp dir) start their p2p planes on 127.0.0.1; A pairs the
+   library into B over the encrypted tunnel (the port's X25519, Ed25519,
+   HKDF and ChaCha20-Poly1305) and B clones it through the blob
+   pass-through; B's ``file_path``, ``object``, ``location`` and
+   ``instance`` rows equal A's by pub_id, and its op log A's count. Then
+   one directory of phase 7's corpus takes 200 new files, 50 rewrites and
+   50 removals, ``light_scan_location`` on A hashes them with K1, and B
+   must converge within 30 s; last, A spacedrops phase 5's 64 MiB +
+   12345 B file to B, whose ``checksums_for_files`` on the card (K2 and
+   the fold) must equal A's checksum. Printed: the handshake's ms, the
+   clone's wall, ops/s, pages relayed and bytes sealed, the AEAD's MB/s,
+   the rescan's and the convergence's s, the spacedrop's MB/s;
+14. the kernel table as one JSON line, launches summed over phases 4-13,
    the CV forms beside them with their 0.
 
 Launch counts are reset just before each main path (phases 4 and 5, each
 ring run of phase 6, the scans of phases 7, 8 and 9, each validator job,
 each near-dup job and each search of phase 10, phase 11's paused scan,
-its watcher's rescans and its browse, and phase 12's scans and browse)
+its watcher's rescans and its browse, phase 12's scans and browse, and
+phase 13 as a whole)
 and read just after;
 launches made to compare or time a kernel are not counted. Every failure
 raises, so the exit code is 0 only if every phase passed. The last line is ``{"ok": true, "device": {...}}``.
@@ -520,6 +535,12 @@ def build_identify_corpus(root: Path, n_files: int):
     return files, sorted(planted)
 
 
+# Phase 4 holds every PLAIN_STRIDE-th file against the plain path (phase 2
+# holds K1 against plain at the full step shape; the script's time limit
+# leaves room for no more).
+PLAIN_STRIDE = 4
+
+
 def phase_real_files(workdir: Path, counts: dict):
     """Phase 4. Returns the corpus's readable large files for the ring."""
     from spacedrive_tpu_torch.ops import blake3_batch as bb
@@ -549,11 +570,18 @@ def phase_real_files(workdir: Path, counts: dict):
             f"identify path launched {counts['identify']}, not one K1 per size class")
     require(pool.in_use == 0, f"{pool.in_use} identify leases never came back")
 
+    # The plain path on every PLAIN_STRIDE-th file and the odd ones (empty,
+    # missing, stale): both size classes, their edges and the errors.
+    odd = {i for i, (p, _) in enumerate(files) if Path(p).name in ("empty", "missing", "stale")}
+    checked = sorted(set(range(0, len(files), PLAIN_STRIDE)) | odd)
     t0 = time.perf_counter()
-    plain_ids, plain_errors = staging.cas_ids_for_files(files, backend="plain")
+    plain_ids, plain_errors = staging.cas_ids_for_files([files[i] for i in checked],
+                                                        backend="plain")
     plain_s = time.perf_counter() - t0
-    require(ids == plain_ids, "cuda CAS IDs != plain CAS IDs")
-    require(set(errors) == set(plain_errors), "cuda errors != plain errors")
+    require(all(ids.get(i) == plain_ids.get(j) for j, i in enumerate(checked)),
+            "cuda CAS IDs != plain CAS IDs")
+    require({i for i in errors if i in set(checked)} == {checked[j] for j in plain_errors},
+            "cuda errors != plain errors")
     names = sorted(Path(files[i][0]).name for i in errors)
     require(names == ["missing", "stale"], f"unexpected errors {names}")
     require(ids[[p for p, _ in files].index(str(root / "empty"))] is None, "empty file has an id")
@@ -605,7 +633,7 @@ def phase_real_files(workdir: Path, counts: dict):
     pack_s = time.perf_counter() - t0
     emit("real_files", files=len(files), corpus_build_s=corpus_s,
          identify_s=identify_s, identify_files_per_s=len(files) / identify_s,
-         plain_s=plain_s, errors=names, dup_groups=len(found),
+         plain_s=plain_s, plain_files=len(checked), errors=names, dup_groups=len(found),
          launches=counts["identify"], n_threads=n_threads,
          pinned_bytes=pool.pinned_bytes, pin_alloc_s=pool.alloc_s,
          native_stage_s=sum(v["native_stage_s"] for v in split.values()),
@@ -1782,7 +1810,7 @@ def jpeg_bytes(pixels: np.ndarray, quality: int = 75, sampling=(2, 2),
 
 # -- TIFF writer (harness code: the near-dup corpus and the tests) -------------
 
-TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 16: "Q"}  # BYTE, ASCII, SHORT, LONG, LONG8
+TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 7: "B", 16: "Q"}  # BYTE, ASCII, SHORT, LONG, UNDEFINED, LONG8
 
 
 def tiff_lzw(data: bytes) -> bytes:
@@ -3477,7 +3505,7 @@ def brute_force_pairs(hashes: dict, threshold: int, block: int = 2048) -> list:
 # -- phases 9 and 10: near-dup search -----------------------------------------
 
 # Cut from 10 000 files to make room for phase 12 (a cut of scale).
-NEAR_DUP_A = dict(n_files=6_000, groups=180, copies=60, refused=20)
+NEAR_DUP_A = dict(n_files=4_400, groups=180, copies=60, refused=20)
 NEAR_DUP_B = dict(n_files=2_000, groups=60, copies=20, refused=6)
 PLAIN_DECODE_SAMPLE = 1024
 # Phase 10: the job's ALL_PAIRS_LIMIT, the 1M-digest scale of
@@ -5487,6 +5515,220 @@ def phase_media(counts: dict) -> dict:
     return out
 
 
+SYNC_DIR = "scan-050"         # the phase 7 directory the live part changes
+SYNC_NEW, SYNC_EDITED, SYNC_REMOVED = 200, 50, 50
+SYNC_CLONE_DEADLINE_S = 300.0
+SYNC_CONVERGE_DEADLINE_S = 30.0
+SYNC_AEAD_BYTES = 16 << 20
+
+
+def synced_rows(db, table: str) -> list:
+    """`table`'s rows as the sync plane carries them, sorted: every column
+    but the local row id, its owner and a file's inode (local to the
+    disk it was indexed on: creates do not carry it), an FK to a shared
+    model as the referenced row's pub_id."""
+    from spacedrive_tpu_torch.store import models as M
+
+    model = M.MODELS[table]
+    cols, joins = [], []
+    for f in model.fields:
+        if f.name in ("id", "instance_id", "inode"):
+            continue
+        target = f.references.split("(", 1)[0] if f.references else None
+        if target is not None and M.MODELS[target].sync == M.SyncMode.SHARED:
+            alias = f"j{len(joins)}"
+            joins.append(f"LEFT JOIN {target} {alias} ON {alias}.id = t.{f.name}")
+            cols.append(f"{alias}.pub_id")
+        else:
+            cols.append(f"t.{f.name}")
+    rows = db.query(
+        f"SELECT {', '.join(cols)} FROM {table} t {' '.join(joins)} ORDER BY t.pub_id")
+    return [tuple(r) for r in rows]
+
+
+def first_difference(ra: list, rb: list):
+    """The first row pair (and column names' positions) that differ."""
+    for x, y in zip(ra, rb):
+        if x != y:
+            return [(i, a, b) for i, (a, b) in enumerate(zip(x, y)) if a != b][:4]
+    return None
+
+
+def op_log_count(db) -> int:
+    return (db.query_one("SELECT COUNT(*) AS n FROM shared_operation")["n"]
+            + db.query_one("SELECT COUNT(*) AS n FROM relation_operation")["n"]
+            + db.query_one("SELECT COALESCE(SUM(n_ops), 0) AS n FROM shared_op_blob")["n"])
+
+
+def sync_live_changes(root: Path) -> dict:
+    """SYNC_NEW new files, SYNC_EDITED rewritten in place, SYNC_REMOVED
+    removed, all in one directory; the new ones are written first (a new
+    file must not take a removed one's inode)."""
+    d = root / SYNC_DIR
+    old = sorted(p for p in d.iterdir() if p.is_file())
+    new = [d / f"synced{i:04d}" for i in range(SYNC_NEW)]
+    for i, p in enumerate(new):
+        p.write_bytes(f"synced file {i:08d} ".encode() * 64)
+    edited = old[:SYNC_EDITED]
+    for i, p in enumerate(edited):
+        with open(p, "r+b") as f:
+            f.write(f"edited {i:08d}".encode())
+        os.utime(p, None)
+    removed = old[SYNC_EDITED:SYNC_EDITED + SYNC_REMOVED]
+    for p in removed:
+        p.unlink()
+    return dict(new=len(new), edited=len(edited), removed=len(removed))
+
+
+def phase_sync(workdir: Path, data_dir: str, sums: dict, counts: dict,
+               device: str = "cuda") -> dict:
+    """Phase 13: phase 7's library cloned over the encrypted tunnel to a
+    second node, kept current through a light rescan, and a spacedrop."""
+    import asyncio
+    import socket
+    import statistics
+
+    from spacedrive_tpu_torch.locations import shallow
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects import validator
+    from spacedrive_tpu_torch.ops import blake3_cuda
+    from spacedrive_tpu_torch.p2p import _crypto, proto
+    from spacedrive_tpu_torch.p2p.identity import Identity
+    from spacedrive_tpu_torch.sync import clone_serve
+
+    key, nonce = bytes(range(32)), bytes(12)
+    blob = np.random.default_rng(13).integers(0, 256, SYNC_AEAD_BYTES, np.uint8).tobytes()
+    _crypto.seal(key, nonce, blob[:4096])  # builds the library
+    t0 = time.perf_counter()
+    for _ in range(4):
+        sealed = _crypto.seal(key, nonce, blob)
+    aead_mb_s = 4 * len(blob) / (time.perf_counter() - t0) / 1e6
+    require(_crypto.open_(key, nonce, sealed) == blob, "AEAD round trip")
+    plain_head = _crypto.seal_plain(key, nonce, blob[:65536])
+    require(_crypto.seal(key, nonce, blob[:65536]) == plain_head, "AEAD native != plain")
+
+    async def handshake_ms() -> float:
+        ida, idb = Identity(), Identity()
+        times = []
+        for _ in range(8):
+            s1, s2 = socket.socketpair()
+            r1, w1 = await asyncio.open_connection(sock=s1)
+            r2, w2 = await asyncio.open_connection(sock=s2)
+            t = time.perf_counter()
+            ta, tb = await asyncio.gather(proto.tunnel_handshake(r1, w1, ida, True),
+                                          proto.tunnel_handshake(r2, w2, idb, False))
+            times.append((time.perf_counter() - t) * 1e3)
+            require(ta.remote == idb.to_remote_identity() and tb.remote == ida.to_remote_identity(),
+                    "handshake identities")
+            ta.close()
+            tb.close()
+        return statistics.median(times)
+
+    big = str(workdir / "validate" / "big")
+    root = workdir / "identify"
+
+    async def main(b_dir: str):
+        out = {"handshake_ms": await handshake_ms()}
+        a, b = Node(data_dir, device=device), Node(b_dir, device=device)
+        try:
+            await a.start()
+            await b.start()
+            await a.start_p2p(host="127.0.0.1", enable_discovery=False)
+            pb = await b.start_p2p(host="127.0.0.1", enable_discovery=False)
+            [lib_a] = a.libraries.list()
+            [loc] = lib_a.db.query("SELECT id FROM location WHERE path = ?", (str(root),))
+            a_ops = op_log_count(lib_a.db)
+            out["ping_ms"] = await a.p2p.ping("127.0.0.1", pb) * 1e3
+
+            # Pair, then the clone through the pass-through.
+            pages0, sent0 = clone_serve.pages_relayed[0], proto.stats["bytes_sent"]
+            b.p2p.on_pairing_request = lambda peer, info: True
+            t_pair = time.perf_counter()
+            require(await a.p2p.pair("127.0.0.1", pb, lib_a), "pairing refused")
+            [lib_b] = b.libraries.list()
+            require(lib_b.id == lib_a.id, "B's library has another id")
+            deadline = time.monotonic() + SYNC_CLONE_DEADLINE_S
+            while op_log_count(lib_b.db) < a_ops:  # a count: poll it sparingly
+                require(time.monotonic() < deadline,
+                        f"the clone did not finish within {SYNC_CLONE_DEADLINE_S} s "
+                        f"({op_log_count(lib_b.db)} of {a_ops} ops)")
+                await asyncio.sleep(0.25)
+            clone_s = time.perf_counter() - t_pair
+            out.update(clone_s=clone_s, clone_ops=a_ops, clone_ops_per_s=a_ops / clone_s,
+                       pages_relayed=clone_serve.pages_relayed[0] - pages0,
+                       bytes_sealed=proto.stats["bytes_sent"] - sent0)
+            require(out["pages_relayed"] > 0, "the clone relayed no blob page")
+            t0 = time.perf_counter()
+            for table in ("file_path", "object", "location"):
+                ra = await asyncio.to_thread(synced_rows, lib_a.db, table)
+                rb = await asyncio.to_thread(synced_rows, lib_b.db, table)
+                require(ra == rb, f"B's {table} != A's ({len(rb)} rows against {len(ra)}; "
+                                  f"first differing: {first_difference(ra, rb)})")
+                out[f"{table}_rows"] = len(ra)
+            inst = [sorted(r["pub_id"] for r in db.query("SELECT pub_id FROM instance"))
+                    for db in (lib_a.db, lib_b.db)]
+            require(inst[0] == inst[1], "instance rows differ")
+            require(op_log_count(lib_b.db) == a_ops, "B's op log != A's")
+            out["compare_s"] = time.perf_counter() - t0
+
+            # The live part: one directory changed, a light rescan on A.
+            out["changes"] = sync_live_changes(root)
+            t0 = time.perf_counter()
+            res = await asyncio.to_thread(shallow.light_scan_location, lib_a, loc["id"],
+                                          SYNC_DIR, a.backend)
+            out["rescan_s"] = time.perf_counter() - t0
+            require(not res["errors"], f"rescan errors {res['errors'][:3]}")
+            out["rescan"] = {k: v for k, v in res.items() if k != "errors"}
+            # B has converged when its op log holds A's (an op and its rows
+            # commit together); then every table must match.
+            t0 = time.perf_counter()
+            deadline = time.monotonic() + SYNC_CONVERGE_DEADLINE_S
+            while op_log_count(lib_b.db) != op_log_count(lib_a.db):
+                require(time.monotonic() < deadline,
+                        f"B did not converge within {SYNC_CONVERGE_DEADLINE_S} s")
+                await asyncio.sleep(0.05)
+            out["converge_s"] = time.perf_counter() - t0
+            for table in ("file_path", "object", "location"):
+                ra = await asyncio.to_thread(synced_rows, lib_a.db, table)
+                rb = await asyncio.to_thread(synced_rows, lib_b.db, table)
+                require(ra == rb, f"B's {table} != A's after the rescan "
+                                  f"(first differing: {first_difference(ra, rb)})")
+
+            # Spacedrop: phase 5's 64 MiB + 12345 B file, checksummed on B.
+            drop = os.path.join(b_dir, "drop-big")
+            b.p2p.on_spacedrop = lambda peer, req: drop
+            t0 = time.perf_counter()
+            require(await a.p2p.spacedrop("127.0.0.1", pb, big) == "sent", "spacedrop refused")
+            drop_s = time.perf_counter() - t0
+            got, errors = await asyncio.to_thread(validator.checksums_for_files, [drop], device)
+            require(not errors and got[0] == sums[big],
+                    "the spacedropped file's checksum on B != A's")
+            out.update(spacedrop_bytes=os.path.getsize(drop), spacedrop_s=drop_s,
+                       spacedrop_mb_s=os.path.getsize(drop) / drop_s / 1e6)
+            out["launches"] = dict(blake3_cuda.launches)
+        finally:
+            await a.shutdown()
+            await b.shutdown()
+        return out
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    blake3_cuda.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sync-") as b_dir:
+        t0 = time.perf_counter()
+        out = asyncio.run(main(b_dir))
+        out["wall_s"] = time.perf_counter() - t0
+    out["aead_mb_s"] = aead_mb_s
+    counts["sync"] = out["launches"]
+    if device == "cuda":
+        require(out["launches"][blake3_cuda.FAST] > 0, "the rescan launched no K1")
+        require(out["launches"][blake3_cuda.WINDOWED] > 0
+                and out["launches"][blake3_cuda.FOLD] > 0,
+                "B's checksum launched no K2 or fold")
+    emit("sync", **out)
+    return out
+
+
 REPLACES = {
     "blake3_chunk_fast": "spacedrive_tpu/ops/blake3_pallas.py:121",
     "blake3_chunk_fast_cvs": "spacedrive_tpu/ops/blake3_pallas.py:121",
@@ -5558,6 +5800,8 @@ def main() -> int:
         finally:
             lib.db.close()
         mark("validate_job")
+        phase_sync(Path(tmp), data_dir, sums, counts)
+        mark("sync")
     # The near-dup corpora and their library in the system temp dir.
     with tempfile.TemporaryDirectory(prefix="chip-smoke-near-dup-") as tmp:
         near_dup = phase_near_dup_job(Path(tmp), counts)

@@ -10,13 +10,19 @@ port runs on has no ``msgpack`` package, so the port carries this codec:
 ``tuple`` and ``dict`` with any of these as keys, so a library the port
 writes is the library the JAX package reads. ``unpackb`` decodes every
 format ``packb`` writes plus float 32, with strings as ``str``, binaries
-as ``bytes``, arrays as ``list`` and maps as ``dict``.
+as ``bytes``, arrays as ``list`` and maps as ``dict`` whose keys may be of
+any hashable type, as msgpack's are with ``strict_map_key=False``. It
+refuses the ext types (``msgpack`` would hand back an ``ExtType`` no
+caller reads), a map key that is not hashable (an array), a string that
+is not UTF-8 and extra bytes after the value, each with a ``ValueError``.
+``iter_array`` decodes an array one element at a time, as
+``msgpack.Unpacker`` does, so a reader can stop early.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Iterator, Tuple
 
 _B = struct.Struct(">B").pack
 _BB = struct.Struct(">BB").pack
@@ -158,6 +164,13 @@ _SIZED = {
 }
 
 
+def _utf8(raw: bytes) -> str:
+    try:
+        return raw.decode()
+    except UnicodeDecodeError as e:
+        raise ValueError(f"msgpack str is not UTF-8: {e}") from None
+
+
 def _take(data: bytes, pos: int, n: int) -> Tuple[bytes, int]:
     end = pos + n
     if end > len(data):
@@ -166,27 +179,38 @@ def _take(data: bytes, pos: int, n: int) -> Tuple[bytes, int]:
 
 
 def _unpack(data: bytes, pos: int) -> Tuple[Any, int]:
-    if pos >= len(data):
-        raise ValueError("msgpack data ends inside a value")
-    c = data[pos]
+    # The common codes first, inline: this runs once per decoded value.
+    try:
+        c = data[pos]
+    except IndexError:
+        raise ValueError("msgpack data ends inside a value") from None
     pos += 1
     if c < 0x80:
         return c, pos
-    if c >= 0xE0:
-        return c - 0x100, pos
+    if 0xA0 <= c < 0xC0:
+        end = pos + (c & 0x1F)
+        if end > len(data):
+            raise ValueError("msgpack data ends inside a value")
+        return _utf8(data[pos:end]), end
     if c < 0x90:
         return _map(data, pos, c & 0x0F)
     if c < 0xA0:
         return _array(data, pos, c & 0x0F)
-    if c < 0xC0:
-        raw, pos = _take(data, pos, c & 0x1F)
-        return raw.decode("utf-8"), pos
+    if c >= 0xE0:
+        return c - 0x100, pos
     if c == 0xC0:
         return None, pos
     if c == 0xC2:
         return False, pos
     if c == 0xC3:
         return True, pos
+    if c == 0xC4:
+        if pos >= len(data):
+            raise ValueError("msgpack data ends inside a value")
+        end = pos + 1 + data[pos]
+        if end > len(data):
+            raise ValueError("msgpack data ends inside a value")
+        return data[pos + 1:end], end
     scalar = _SCALARS.get(c)
     if scalar is not None:
         read, width = scalar
@@ -205,7 +229,7 @@ def _unpack(data: bytes, pos: int) -> Tuple[Any, int]:
         return _take(data, pos, n)
     if kind == "str":
         raw, pos = _take(data, pos, n)
-        return raw.decode("utf-8"), pos
+        return _utf8(raw), pos
     if kind == "array":
         return _array(data, pos, n)
     return _map(data, pos, n)
@@ -213,18 +237,33 @@ def _unpack(data: bytes, pos: int) -> Tuple[Any, int]:
 
 def _array(data: bytes, pos: int, n: int) -> Tuple[list, int]:
     out = []
+    append = out.append
     for _ in range(n):
         v, pos = _unpack(data, pos)
-        out.append(v)
+        append(v)
     return out, pos
 
 
 def _map(data: bytes, pos: int, n: int) -> Tuple[dict, int]:
     out = {}
+    size = len(data)
     for _ in range(n):
-        k, pos = _unpack(data, pos)
+        # a fixstr key, inline; any other key through _unpack
+        c = data[pos] if pos < size else -1
+        if 0xA0 <= c < 0xC0:
+            end = pos + 1 + (c & 0x1F)
+            if end > size:
+                raise ValueError("msgpack data ends inside a value")
+            k = _utf8(data[pos + 1:end])
+            pos = end
+        else:
+            k, pos = _unpack(data, pos)
         v, pos = _unpack(data, pos)
-        out[k] = v
+        try:
+            out[k] = v
+        except TypeError:
+            raise ValueError(f"msgpack map key of type {type(k).__name__} "
+                             "is not hashable") from None
     return out, pos
 
 
@@ -235,3 +274,25 @@ def unpackb(data) -> Any:
     if pos != len(data):
         raise ValueError(f"{len(data) - pos} bytes of extra data after the value")
     return obj
+
+
+def iter_array(data) -> Iterator[Any]:
+    """The elements of the msgpack array `data`, decoded one at a time
+    (``msgpack.Unpacker.read_array_header`` then ``unpack`` per element)."""
+    data = bytes(data)
+    if not data:
+        raise ValueError("msgpack data ends inside a value")
+    c = data[0]
+    if 0x90 <= c < 0xA0:
+        n, pos = c & 0x0F, 1
+    elif c in (0xDC, 0xDD):
+        width = 2 if c == 0xDC else 4
+        if len(data) < 1 + width:
+            raise ValueError("msgpack data ends inside a value")
+        n = (_U16 if c == 0xDC else _U32)(data, 1)[0]
+        pos = 1 + width
+    else:
+        raise ValueError(f"msgpack value at 0 is not an array (code 0x{c:02x})")
+    for _ in range(n):
+        v, pos = _unpack(data, pos)
+        yield v

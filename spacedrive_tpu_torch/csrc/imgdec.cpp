@@ -271,7 +271,8 @@ void sd_resample_lanczos_rgba(const uint8_t* in, int64_t h, int64_t w, int64_t o
 // bytes apart) → out [h, w, 3] RGB. kind 0: gray (band 0 to R, G and B,
 // PIL's L/LA to RGB); 1: I;16 (little-endian 16-bit gray, clipped at 255);
 // 2: RGB (the first three bands); 3: RGBA composited onto white, PIL's
-// paste with an L mask (Paste.c BLEND: DIV255(white·(255 − a) + c·a)).
+// paste with an L mask (Paste.c BLEND: DIV255(white·(255 − a) + c·a));
+// 4: CMYK, PIL's cmyk2rgb (nk = 255 − K, each band nk − DIV255(c·nk)).
 int64_t sd_thumb_rgb(const uint8_t* in, int64_t n, int64_t pixel, int64_t kind,
                      uint8_t* out) {
   for (int64_t i = 0; i < n; ++i) {
@@ -293,6 +294,15 @@ int64_t sd_thumb_rgb(const uint8_t* in, int64_t n, int64_t pixel, int64_t kind,
           o[b] = (uint8_t)(((t >> 8) + t) >> 8);
         }
         break;
+      case 4: {
+        const int nk = 255 - p[3];
+        for (int b = 0; b < 3; ++b) {
+          const int t = p[b] * nk + 128;
+          const int v = nk - (((t >> 8) + t) >> 8);
+          o[b] = (uint8_t)(v < 0 ? 0 : v);
+        }
+        break;
+      }
       default:
         return 1;
     }

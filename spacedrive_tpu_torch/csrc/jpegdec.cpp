@@ -7,7 +7,8 @@
 // (spectral selection, successive approximation, EOB runs, restart
 // intervals) into whole-image coefficient buffers, jpeg_idct_islow with the
 // SIMD path's saturating outputs, fancy upsampling (h2v1, h2v2, h1v2) or
-// replication, and the YCbCr -> RGB tables of jdcolor.c. What it cannot
+// replication, the YCbCr -> RGB tables of jdcolor.c, and four components
+// as PIL reads CMYK (YCCK converted, every sample inverted). What it cannot
 // give exactly it refuses with a status code; media/jpeg.py holds the
 // reasons, and each refusal here is the plain version's refusal.
 //
@@ -103,7 +104,7 @@ void read_frame(int marker, const uint8_t* p, int64_t len, Frame& f, int64_t max
   const int n = p[5];
   if (precision != 8) refuse(PRECISION);
   if (f.height == 0) refuse(DNL);
-  if (n != 1 && n != 3) refuse(COMPONENTS);
+  if (n != 1 && n != 3 && n != 4) refuse(COMPONENTS);
   if (f.width == 0 || f.width > MAX_DIMENSION || f.height > MAX_DIMENSION || len != 6 + 3 * n)
     refuse(BAD_FRAME);
   f.progressive = marker == 0xC2;
@@ -458,7 +459,8 @@ bool has_length(int m) {
 }
 
 // The walk; with header_only it stops at the frame header. Returns whether
-// three components are RGB (no colour conversion).
+// the components need no colour conversion: three that are RGB, four that
+// are CMYK (not YCCK).
 bool walk(Decoder& dec, bool header_only, int64_t max_pixels) {
   const uint8_t* d = dec.d;
   const int64_t n = dec.n;
@@ -556,6 +558,7 @@ bool walk(Decoder& dec, bool header_only, int64_t max_pixels) {
     for (const auto& c : dec.f.comps)
       for (int k = 0; k < SMOOTHED_COEFS; ++k)
         if (c.coef_bits[k] != 0) refuse(INCOMPLETE);
+  if (dec.f.comps.size() == 4) return !adobe || transform == 0;  // else YCCK
   if (dec.f.comps.size() != 3 || jfif) return false;
   if (adobe) return transform == 0;
   return dec.f.comps[0].cid == 82 && dec.f.comps[1].cid == 71 && dec.f.comps[2].cid == 66;
@@ -671,9 +674,12 @@ void upsample(const uint8_t* p, int64_t dh, int64_t dw, int64_t stride, int he, 
   }
 }
 
-int decode(const uint8_t* data, int64_t n, int64_t max_pixels, uint8_t* out) {
+// `color`: -1 the markers decide, 0 convert (YCbCr or YCCK), 1 no
+// conversion (libtiff's JCS_UNKNOWN for a TIFF whose photometric is RGB).
+int decode(const uint8_t* data, int64_t n, int64_t max_pixels, int64_t color, uint8_t* out) {
   Decoder dec(data, n);
-  const bool rgb = walk(dec, false, max_pixels);
+  const bool marked = walk(dec, false, max_pixels);
+  const bool rgb = color < 0 ? marked : color == 1;
   const Frame& f = dec.f;
   const size_t nc = f.comps.size();
   std::vector<std::vector<uint8_t>> planes(nc);
@@ -714,6 +720,26 @@ int decode(const uint8_t* data, int64_t n, int64_t max_pixels, uint8_t* out) {
     cb_g[i] = -22554 * x + 32768;
   }
   auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+  if (nc == 4) {
+    // libjpeg's CMYK (YCCK: 255 - RGB, K as is), inverted as PIL reads it
+    for (int64_t y = 0; y < h; ++y)
+      for (int64_t x = 0; x < w; ++x) {
+        const int a = planes[0][y * widths[0] + x], b = planes[1][y * widths[1] + x],
+                  c = planes[2][y * widths[2] + x], k = planes[3][y * widths[3] + x];
+        uint8_t* px = out + (y * w + x) * 4;
+        if (rgb) {
+          px[0] = (uint8_t)(255 - a);
+          px[1] = (uint8_t)(255 - b);
+          px[2] = (uint8_t)(255 - c);
+        } else {
+          px[0] = clamp(a + cr_r[c]);
+          px[1] = clamp(a + (int)((cb_g[b] + cr_g[c]) >> 16));
+          px[2] = clamp(a + cb_b[b]);
+        }
+        px[3] = (uint8_t)(255 - k);
+      }
+    return OK;
+  }
   for (int64_t y = 0; y < h; ++y)
     for (int64_t x = 0; x < w; ++x) {
       const int a = planes[0][y * widths[0] + x], b = planes[1][y * widths[1] + x],
@@ -751,10 +777,12 @@ int64_t sd_jpeg_header(const uint8_t* data, int64_t n, int64_t max_pixels, int64
 }
 
 // The whole decode into out [height, width, components] uint8 (sized from
-// sd_jpeg_header). Returns a status.
-int64_t sd_jpeg_decode(const uint8_t* data, int64_t n, int64_t max_pixels, uint8_t* out) {
+// sd_jpeg_header), the colour transform as `color` says (see decode).
+// Returns a status.
+int64_t sd_jpeg_decode(const uint8_t* data, int64_t n, int64_t max_pixels, int64_t color,
+                       uint8_t* out) {
   try {
-    return decode(data, n, max_pixels, out);
+    return decode(data, n, max_pixels, color, out);
   } catch (const Refused& r) {
     return r.code;
   }

@@ -2,7 +2,9 @@
 
 The port's own copy of the entries of ``spacedrive_tpu/flags.py`` that its
 modules read: the store's group-commit actor (``store/actor.py``,
-``store/db.py``) and the location watcher (``locations/watcher.py``). It
+``store/db.py``), the location watcher (``locations/watcher.py``), the
+budgets of sync and p2p (``timeouts.py``), the clone pass-through
+(``p2p/sync_net.py``) and the wire auditor (``p2p/wire.py``). It
 declares no knob the JAX package lacks. ``get`` parses the live
 environment on every call (nothing is cached), so a test or a bench can
 flip a knob mid-process as it can in the JAX package.
@@ -74,3 +76,19 @@ declare(
     "SDTPU_WATCHER", "", lambda v: v.strip().lower(),
     "`poll` forces the polling watcher even where inotify is available "
     "(locations/watcher.py).")
+
+declare(
+    "SDTPU_CLONE_PASSTHROUGH", True, parse_onoff,
+    "Kill switch for the full-library-clone blob pass-through fast path "
+    "(p2p/sync_net.py). `off` forces the per-op pull loop.")
+
+declare(
+    "SDTPU_TIMEOUT_SCALE", 1.0, float,
+    "Global multiplier over every declared network-await budget "
+    "(timeouts.py).")
+
+declare(
+    "SDTPU_WIRE_AUDIT", "auto", lambda v: v.strip().lower(),
+    "Runtime wire auditor (p2p/wire.py): when armed, every frame crossing "
+    "the tunnel in either direction is matched against its declared "
+    "message contract. `off` skips arming (pack/unpack still validate).")

@@ -13,8 +13,9 @@ from the bytes' signature, as PIL finds it, never from the file's name:
   rows are unfiltered (None, Sub, Up, Average, Paeth) by
   ``csrc/imgdec.cpp``, one Adam7 pass at a time;
 - BMP, uncompressed, at 24 and 32 bits and 8-bit palette (3 to 256 colours);
-- JPEG, baseline, extended and progressive, one or three components
-  (``media/jpeg.py``, ``csrc/jpegdec.cpp``);
+- JPEG, baseline, extended and progressive, one, three or four
+  components, the last CMYK as PIL reads it (``media/jpeg.py``,
+  ``csrc/jpegdec.cpp``);
 - GIF, the first frame (``media/gif.py``, its LZW in ``csrc/imgdec.cpp``);
 - ICO, the frame PIL takes: a PNG frame as above, or a DIB at 1, 4, 8, 24
   or 32 bits;
@@ -36,8 +37,8 @@ What PIL does, and this module with it:
   palette index through ``L24`` of its entry, 1/2/4-bit gray expands to
   0..255 (×255, ×0x55, ×0x11), 16-bit gray (``I;16``) clips at 255, 16-bit
   colour keeps each sample's high byte (``RGB;16B``, ``RGBA;16B``,
-  ``LA;16B``); transparency (tRNS, GIF's transparent index) never changes
-  L;
+  ``LA;16B``), CMYK goes through ``cmyk2rgb`` then ``L24``; transparency
+  (tRNS, GIF's transparent index) never changes L;
 - LANCZOS: separable, support 3 scaled by the reduction factor, weights
   normalised in double and rounded to 22-bit fixed point, a horizontal pass
   rounded and clipped to uint8, then the vertical pass; a side already 32
@@ -143,7 +144,8 @@ def decode_luma(data: bytes, *, native: bool = True) -> np.ndarray:
 def decode_image(data: bytes, *, native: bool = True) -> Tuple[np.ndarray, str]:
     """Image bytes → (pixels, mode): PIL's mode of ``Image.open(...)
     .load()`` and its pixels, "RGB" and "RGBA" in that band order, "LA"
-    [h, w, 2], "I;16" [h, w] uint16, "1" and "L" [h, w]; a "P" image's
+    [h, w, 2], "CMYK" [h, w, 4], "I;16" [h, w] uint16, "1" and "L" [h, w];
+    a "P" image's
     pixels are its palette's colours [h, w, 3] (the lookup PIL's
     ``convert`` makes; the indices are not kept)."""
     d = decode(data, native=native)
@@ -187,7 +189,7 @@ def decode(data: bytes, *, native: bool = True, alpha: bool = True) -> Decoded:
 
 def to_luma(d: Decoded, native: bool) -> np.ndarray:
     """PIL's ``convert("L")`` of a decoded image: L24 of the colour, alpha
-    dropped, I;16 clipped at 255."""
+    dropped, I;16 clipped at 255, CMYK through ``cmyk2rgb`` first."""
     if d.mode in ("1", "L"):
         return d.pixels
     if d.mode == "LA":
@@ -196,6 +198,8 @@ def to_luma(d: Decoded, native: bool) -> np.ndarray:
         return np.minimum(d.pixels, 255).astype(np.uint8)
     if d.mode == "P":
         return l24(d.palette)[d.pixels]
+    if d.mode == "CMYK":
+        return _rgb_to_l(thumb_rgb(d.pixels, "CMYK", native=native), (0, 1, 2), native)
     return _rgb_to_l(d.pixels, d.order[:3], native)
 
 
@@ -206,7 +210,7 @@ def _jpeg_decode(data: bytes, native: bool) -> Decoded:
         px = plane.jpeg_decode(data)
     else:
         px = jpeg.decode_plain(data)
-    return Decoded(px, "L" if px.ndim == 2 else "RGB")
+    return Decoded(px, "L" if px.ndim == 2 else "RGB" if px.shape[2] == 3 else "CMYK")
 
 
 def _rgb_to_l(pixels: np.ndarray, order, native: bool) -> np.ndarray:
@@ -542,7 +546,7 @@ def resize_lanczos(luma: np.ndarray, edge: int = GRID_EDGE) -> np.ndarray:
 # -- thumbnails: RGB at any size ---------------------------------------------
 
 # thumb_rgb's kinds, as csrc/imgdec.cpp's sd_thumb_rgb numbers them.
-THUMB_KINDS = {"1": 0, "L": 0, "LA": 0, "I;16": 1, "RGB": 2, "P": 2, "RGBA": 3}
+THUMB_KINDS = {"1": 0, "L": 0, "LA": 0, "I;16": 1, "RGB": 2, "P": 2, "RGBA": 3, "CMYK": 4}
 
 
 def thumb_rgb(pixels: np.ndarray, mode: str, *, native: bool = True) -> np.ndarray:
@@ -551,7 +555,7 @@ def thumb_rgb(pixels: np.ndarray, mode: str, *, native: bool = True) -> np.ndarr
     its alpha as the mask (PIL's Paste.c BLEND,
     ``DIV255(255·(255 − a) + c·a)``), every other mode through PIL's
     ``convert("RGB")`` (gray replicated, LA's alpha dropped, I;16 clipped at
-    255, a palette's colours as they are)."""
+    255, a palette's colours as they are, CMYK by ``cmyk2rgb``)."""
     kind = THUMB_KINDS.get(mode)
     if kind is None:
         raise ValueError(f"thumb_rgb: mode {mode!r}")
@@ -570,9 +574,19 @@ def thumb_rgb_plain(pixels: np.ndarray, kind: int) -> np.ndarray:
         return np.repeat(np.minimum(pixels, 255).astype(np.uint8)[..., None], 3, axis=-1)
     if kind == 2:
         return np.ascontiguousarray(pixels[..., :3])
+    if kind == 4:
+        return cmyk_to_rgb(pixels)
     a = pixels[..., 3:4].astype(np.uint32)
     t = 255 * (255 - a) + pixels[..., :3].astype(np.uint32) * a + 128
     return (((t >> 8) + t) >> 8).astype(np.uint8)
+
+
+def cmyk_to_rgb(pixels: np.ndarray) -> np.ndarray:
+    """[..., 4] uint8 CMYK → [..., 3] uint8 RGB, PIL's ``cmyk2rgb``:
+    nk = 255 − K, each band CLIP8(nk − DIV255(c · nk))."""
+    nk = 255 - pixels[..., 3:4].astype(np.int32)
+    t = pixels[..., :3].astype(np.int32) * nk + 128
+    return np.maximum(nk - (((t >> 8) + t) >> 8), 0).astype(np.uint8)
 
 
 @functools.lru_cache(maxsize=64)

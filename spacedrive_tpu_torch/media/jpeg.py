@@ -2,7 +2,7 @@
 
 PIL opens a JPEG through libjpeg-turbo with its defaults (``JDCT_ISLOW``,
 fancy upsampling, block smoothing) and asks for L from one component, RGB
-from three; ``convert("L")`` of the RGB is then L24. The machine with the
+from three, CMYK from four; ``convert("L")`` of the RGB is then L24. The machine with the
 card has no PIL and no libjpeg, so the port decodes JPEG itself, integer
 arithmetic only, to libjpeg-turbo 3.1.3's samples exactly:
 
@@ -27,10 +27,16 @@ arithmetic only, to libjpeg-turbo 3.1.3's samples exactly:
   most 2 or its factors are other integers;
 - YCbCr to RGB through ``jdcolor.c``'s fixed-point tables, clamped; no
   conversion where the image is RGB (Adobe APP14 transform 0, or component
-  IDs 'R', 'G', 'B' without JFIF or Adobe markers).
+  IDs 'R', 'G', 'B' without JFIF or Adobe markers);
+- four components: CMYK as they are (no Adobe marker, or transform 0) or
+  YCCK to CMYK (any other Adobe transform: ``ycck_cmyk_convert``, 255 minus
+  the YCbCr-to-RGB of the first three, K as it is), then every sample
+  inverted, as PIL reads a CMYK JPEG (raw mode ``CMYK;I``, Adobe's
+  polarity). ``imgdecode.thumb_rgb`` turns that into RGB by PIL's
+  ``cmyk2rgb``.
 
-What it cannot give exactly it refuses with a reason (``REASONS``): CMYK
-and YCCK, arithmetic coding, lossless and hierarchical frames, 12-bit
+What it cannot give exactly it refuses with a reason (``REASONS``): two
+or more than four components, arithmetic coding, lossless and hierarchical frames, 12-bit
 samples, DNL, a file without EOI (PIL: "image file is truncated"), a scan
 whose entropy data is short or corrupt (libjpeg would warn and fill),
 a progressive image whose first ten coefficients are incomplete (libjpeg
@@ -82,7 +88,7 @@ REASONS = {
     LOSSLESS: "lossless JPEG",
     HIERARCHICAL: "hierarchical JPEG",
     PRECISION: "JPEG samples are not 8-bit",
-    COMPONENTS: "JPEG with other than 1 or 3 components (CMYK, YCCK)",
+    COMPONENTS: "JPEG with other than 1, 3 or 4 components",
     DNL: "JPEG with a DNL marker",
     BAD_TABLE: "bad or missing JPEG table",
     BAD_FRAME: "bad JPEG frame header",
@@ -273,7 +279,7 @@ class _Frame:
             raise _Refused(PRECISION)
         if self.height == 0:
             raise _Refused(DNL)
-        if n not in (1, 3):
+        if n not in (1, 3, 4):
             raise _Refused(COMPONENTS)
         if self.width == 0 or max(self.width, self.height) > MAX_DIMENSION or \
                 len(payload) != 6 + 3 * n:
@@ -674,7 +680,8 @@ REFUSED_MARKERS = {0xC3: LOSSLESS, 0xC9: ARITHMETIC, 0xCA: ARITHMETIC, 0xCB: LOS
 
 def _walk(data: bytes):
     """The marker walk, decoding each scan as it comes; returns (frame,
-    [blocks, 64] coefficients, whether the three components are RGB)."""
+    [blocks, 64] coefficients, whether the components need no colour
+    transform: three that are RGB, four that are CMYK, not YCCK)."""
     if data[:3] != b"\xff\xd8\xff":
         raise _Refused(NOT_JPEG)
     pos = 2
@@ -754,20 +761,26 @@ def _walk(data: bytes):
             rgb = transform == 0
         else:
             rgb = [c.cid for c in frame.comps] == [82, 71, 66]
+    elif len(frame.comps) == 4:
+        rgb = not adobe or transform == 0  # else YCCK (jdapimin.c)
     return frame, coef, rgb
 
 
-def decode_plain(data: bytes) -> np.ndarray:
-    """JPEG bytes → [h, w] uint8 L (one component) or [h, w, 3] uint8 RGB,
-    libjpeg-turbo's samples; raises UnsupportedImage with the reason."""
+def decode_plain(data: bytes, color: int = -1) -> np.ndarray:
+    """JPEG bytes → [h, w] uint8 L (one component), [h, w, 3] uint8 RGB or
+    [h, w, 4] uint8 CMYK as PIL reads it, libjpeg-turbo's samples; raises
+    UnsupportedImage with the reason. `color` -1 lets the markers pick the
+    colour transform, 0 forces the YCbCr (YCCK) conversion, 1 none."""
     try:
-        return _decode(data)
+        return _decode(data, color)
     except _Refused as e:
         raise UnsupportedImage(REASONS[e.code]) from None
 
 
-def _decode(data: bytes) -> np.ndarray:
+def _decode(data: bytes, color: int = -1) -> np.ndarray:
     frame, coef, rgb = _walk(data)
+    if color >= 0:
+        rgb = color == 1
     planes = []
     for c in frame.comps:
         blocks = coef[c.offset:c.offset + c.bw_pad * c.bh_pad]
@@ -778,6 +791,11 @@ def _decode(data: bytes) -> np.ndarray:
         planes.append(up[:frame.height, :frame.width])
     if len(planes) == 1:
         return np.ascontiguousarray(planes[0])
+    if len(planes) == 4:
+        # libjpeg's CMYK (YCCK: 255 - RGB, K as is), then PIL's inversion
+        if rgb:
+            return 255 - np.stack(planes, axis=2)
+        return np.concatenate([ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], axis=2)
     if rgb:
         return np.stack(planes, axis=2)
     return ycc_to_rgb(*planes)

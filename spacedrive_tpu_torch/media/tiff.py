@@ -16,7 +16,16 @@ one of two routes that differ in places, which this module follows:
   byte count and decoded to exactly its size (LZW: MSB-first codes of 9 to
   12 bits with the early change; Deflate (8, 32946) through ``zlib``;
   PackBits), then ``Predictor`` 2 (horizontal differencing of 8 or 16-bit
-  samples, LZW and Deflate only: libtiff's PackBits codec has none).
+  samples, LZW and Deflate only: libtiff's PackBits codec has none);
+- ``Compression`` 7 (JPEG): libtiff hands libjpeg the ``JPEGTables``
+  stream and then each strip or tile's stream, so each is decoded by the
+  port's JPEG decoder with the tables prepended, as one stream: gray
+  (photometric 1), RGB components as they are (photometric 2: libtiff's
+  ``JCS_UNKNOWN``) or YCbCr to RGB (photometric 6, PIL asking libtiff for
+  ``JPEGCOLORMODE_RGB``), contiguous samples only, component 0 sampled as
+  ``YCbCrSubsampling`` says (1 × 1 but for YCbCr) and the others 1 × 1, a
+  stream's size that of its strip or tile (a last strip may be taller),
+  as libtiff's ``JPEGPreDecode`` requires.
 
 Then the mode to L: gray at 1, 2, 4 and 8 bits scaled to 0..255 (inverted
 where ``Photometric`` is 0), 16-bit gray (``I;16``/``I;16B``) clipped at
@@ -29,9 +38,9 @@ its ``ColorMap`` entries' high bytes; last, the EXIF orientation
 Refused, with a reason from ``REASONS``: big-endian BigTIFF (PIL reads
 its header as classic TIFF), an IFD that is cut or points past the file or
 repeats a tag, a tag this module reads that is not an integer PIL reads as
-one, modes outside the table (CMYK, YCbCr, LAB, 12 and 32-bit, float,
-signed 16-bit, fill order 2), compressions other than 1, 5, 8, 32773 and
-32946 (CCITT, JPEG, old JPEG, LZMA, ...), old-style LZW, a predictor
+one, modes outside the table (CMYK, YCbCr but JPEG's, LAB, 12 and 32-bit,
+float, signed 16-bit, fill order 2), compressions other than 1, 5, 7, 8,
+32773 and 32946 (CCITT, old JPEG, LZMA, ...), old-style LZW, a predictor
 libtiff refuses (2 below 8 bits, 3, others), planar layouts PIL misreads
 or reads through libtiff's RGBA interface, a tile past 256 MiB, strip or
 tile data that is short or corrupt, and on libtiff's route what its own
@@ -80,7 +89,7 @@ REASONS = {
     BAD_TAG: "missing or malformed TIFF tag",
     MODE: "TIFF pixel layout outside PIL's table, or CMYK, YCbCr, LAB, 12/32-bit or "
           "float samples",
-    COMPRESSION: "TIFF compression other than none, LZW, Deflate and PackBits",
+    COMPRESSION: "TIFF compression other than none, LZW, JPEG, Deflate and PackBits",
     PREDICTOR: "TIFF predictor libtiff refuses",
     PLANAR: "planar TIFF layout PIL misreads or reads through libtiff's RGBA interface, "
             "or a PlanarConfiguration libtiff refuses",
@@ -105,6 +114,7 @@ STRIP_OFFSETS, ORIENTATION, SAMPLES, ROWS_PER_STRIP, STRIP_COUNTS = 273, 274, 27
 PLANAR_TAG, PREDICTOR_TAG, COLORMAP = 284, 317, 320
 TILE_WIDTH, TILE_LENGTH, TILE_OFFSETS, TILE_COUNTS = 322, 323, 324, 325
 EXTRA_SAMPLES, SAMPLE_FORMAT = 338, 339
+JPEG_TABLES, YCBCR_SUBSAMPLING = 347, 530
 MIN_SAMPLE, MAX_SAMPLE, SMIN_SAMPLE, SMAX_SAMPLE = 280, 281, 340, 341
 MAX_SAMPLES = 6  # PIL's MAX_SAMPLESPERPIXEL
 # The tags libtiff's TIFFReadDirectory fails on when malformed, and the
@@ -232,8 +242,11 @@ def decode(data: bytes, native: bool) -> Decoded:
     compression = _one(big, tags, COMPRESSION_TAG, 1)
     planar = _one(big, tags, PLANAR_TAG, 1)
     photometric = _one(big, tags, PHOTOMETRIC, 0)
-    if compression in (6, 7):  # PIL takes old-style JPEG as YCbCr, JPEG needs libjpeg
+    if compression == 6:  # PIL takes old-style JPEG as YCbCr
         _refuse(COMPRESSION)
+    if compression == 7:
+        return _oriented(big, tags, _jpeg_image(data, big, tags, w, h, photometric,
+                                                planar, native))
     fill = _one(big, tags, FILL_ORDER, 1)
     sample_format = _ints(big, tags, SAMPLE_FORMAT, (1,))
     if len(sample_format) > 1 and max(sample_format) == min(sample_format) == 1:
@@ -288,7 +301,11 @@ def decode(data: bytes, native: bool) -> Decoded:
         _refuse(PLANAR)
     samples = _samples(data, big, tags, w, h, spp, depth, planar == 2 and spp > 1, route,
                        predictor, native)
-    image = _to_image(samples, kind, depth, big, tags, extra)
+    return _oriented(big, tags, _to_image(samples, kind, depth, big, tags, extra))
+
+
+def _oriented(big: bool, tags: dict, image: Decoded) -> Decoded:
+    """The image turned by its Orientation tag, as PIL's TIFF load turns it."""
     kind_, count, raw = tags.get(ORIENTATION, (3, 0, b""))
     orientation = _ints(big, tags, ORIENTATION) if kind_ in INT_TYPES and count == 1 and raw \
         else (1,)
@@ -296,6 +313,99 @@ def decode(data: bytes, native: bool) -> Decoded:
     if turn is None:
         return image
     return image._replace(pixels=np.ascontiguousarray(turn(image.pixels)))
+
+
+def _sof_sampling(stream: bytes):
+    """[(h, v)] of each component in a JPEG stream's frame header, or None."""
+    pos = 2
+    while pos + 4 <= len(stream):
+        if stream[pos] != 0xFF:
+            return None
+        marker = stream[pos + 1]
+        if marker == 0xFF:
+            pos += 1
+            continue
+        length = struct.unpack_from(">H", stream, pos + 2)[0]
+        if marker in (0xC0, 0xC1, 0xC2):
+            n = stream[pos + 9] if pos + 10 <= len(stream) else 0
+            body = stream[pos + 10:pos + 10 + 3 * n]
+            if len(body) != 3 * n:
+                return None
+            return [(body[3 * i + 1] >> 4, body[3 * i + 1] & 15) for i in range(n)]
+        if marker == 0xDA:
+            return None
+        pos += 2 + length
+    return None
+
+
+def _jpeg_image(data: bytes, big: bool, tags: dict, w: int, h: int, photometric: int,
+                planar: int, native: bool) -> Decoded:
+    """Compression 7: every strip or tile through the JPEG decoder, the
+    JPEGTables stream prepended, placed and cropped (module docstring)."""
+    from . import jpeg
+
+    spp = _one(big, tags, SAMPLES, 1)
+    bits = _ints(big, tags, BITS, (8,))
+    channels = {1: 1, 2: 3, 6: 3}.get(photometric)
+    if channels is None or spp != channels or set(bits) != {8} or \
+            EXTRA_SAMPLES in tags or _ints(big, tags, SAMPLE_FORMAT, (1,))[0] != 1 or \
+            _one(big, tags, FILL_ORDER, 1) != 1:
+        _refuse(MODE)
+    if planar != 1 and spp > 1:
+        _refuse(PLANAR)
+    check_size(w, h)
+    sampling = [(1, 1)] * spp
+    if photometric == 6:
+        sub = _ints(big, tags, YCBCR_SUBSAMPLING, (2, 2))
+        if len(sub) != 2:
+            _refuse(BAD_TAG)
+        sampling = [tuple(sub)] + [(1, 1)] * (spp - 1)
+    tables = b""
+    if JPEG_TABLES in tags:
+        tables = tags[JPEG_TABLES][2]
+        if tables[:2] != b"\xff\xd8" or tables[-2:] != b"\xff\xd9":
+            _refuse(BAD_TAG)
+        tables = tables[:-2]
+    tiled = TILE_OFFSETS in tags
+    if tiled:
+        tw, tl = _one(big, tags, TILE_WIDTH), _one(big, tags, TILE_LENGTH)
+        offsets, counts = _ints(big, tags, TILE_OFFSETS), _ints(big, tags, TILE_COUNTS)
+    else:
+        tw = w
+        rps = _one(big, tags, ROWS_PER_STRIP, 2**32 - 1)
+        tl = min(rps, h) if rps else 0
+        offsets, counts = _ints(big, tags, STRIP_OFFSETS), _ints(big, tags, STRIP_COUNTS)
+    if tw < 1 or tl < 1:
+        _refuse(LAYOUT)
+    across, down = -(-w // tw), -(-h // tl)
+    if len(offsets) != across * down or len(counts) != len(offsets):
+        _refuse(LAYOUT)
+    color = {1: -1, 2: 1, 6: 0}[photometric]
+    out = np.zeros((h, w, spp), np.uint8)
+    for k, (off, count) in enumerate(zip(offsets, counts)):
+        stream = data[off:off + count]
+        if len(stream) < count or stream[:2] != b"\xff\xd8":
+            _refuse(SHORT_DATA)
+        if tables:
+            stream = tables + stream[2:]
+        if _sof_sampling(stream) != sampling:
+            _refuse(LAYOUT)  # libtiff: "Improper JPEG sampling factors"
+        y0, x0 = (k // across) * tl, (k % across) * tw
+        rows, cols = (tl, tw) if tiled else (min(tl, h - y0), w)
+        if native:
+            from .. import native as plane
+            px = plane.jpeg_decode(stream, color)
+        else:
+            px = jpeg.decode_plain(stream, color)
+        px = px.reshape(px.shape[0], px.shape[1], -1)
+        last_strip = not tiled and y0 + rows == h
+        if px.shape[1] != cols or px.shape[0] < rows or (px.shape[0] > rows and not last_strip):
+            _refuse(LAYOUT)  # libtiff: the strip or tile size must match
+        take_r, take_c = min(rows, h - y0), min(cols, w - x0)
+        out[y0:y0 + take_r, x0:x0 + take_c] = px[:take_r, :take_c]
+    if spp == 1:
+        return Decoded(out[..., 0], "L")
+    return Decoded(out, "RGB", order=(0, 1, 2, 3))
 
 
 def _raw_planar_ok(photometric: int, kind: str, depth: int, spp: int, extra: tuple) -> bool:

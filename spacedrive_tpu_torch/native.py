@@ -224,7 +224,7 @@ def thumb_rgb(pixels: np.ndarray, kind: int) -> np.ndarray:
     pixels = np.ascontiguousarray(pixels, dtype=dtype)
     h, w = pixels.shape[:2]
     c = pixels.shape[2] if pixels.ndim == 3 else 1
-    need = {0: 1, 1: 1, 2: 3, 3: 4}.get(kind)
+    need = {0: 1, 1: 1, 2: 3, 3: 4, 4: 4}.get(kind)
     if need is None or c < need or pixels.ndim not in (2, 3):
         raise ValueError(f"thumb_rgb: {pixels.shape} {pixels.dtype}, kind {kind}")
     out = np.empty((h, w, 3), np.uint8)
@@ -279,9 +279,11 @@ def gif_lzw(data: bytes, min_size: int, npixels: int) -> np.ndarray:
     return out
 
 
-def jpeg_decode(data: bytes) -> np.ndarray:
-    """JPEG bytes → [h, w] uint8 L (one component) or [h, w, 3] uint8 RGB,
-    libjpeg-turbo's samples, in one call of csrc/jpegdec.cpp;
+def jpeg_decode(data: bytes, color: int = -1) -> np.ndarray:
+    """JPEG bytes → [h, w] uint8 L (one component), [h, w, 3] uint8 RGB or
+    [h, w, 4] uint8 CMYK as PIL reads it (Adobe-inverted), libjpeg-turbo's
+    samples, in one call of csrc/jpegdec.cpp; `color` -1 lets the markers
+    pick the colour transform, 0 forces YCbCr (YCCK) conversion, 1 none;
     UnsupportedImage with ``media.jpeg.REASONS``' reason where it refuses.
     The plain version is ``media.jpeg.decode_plain``."""
     from .media.imgdecode import MAX_PIXELS, UnsupportedImage
@@ -296,7 +298,7 @@ def jpeg_decode(data: bytes) -> np.ndarray:
         raise UnsupportedImage(REASONS[status])
     w, h, c = (int(v) for v in dims)
     out = np.empty((h, w, c), np.uint8)
-    status = lib.sd_jpeg_decode(_ptr(src, ctypes.c_uint8), src.size, MAX_PIXELS,
+    status = lib.sd_jpeg_decode(_ptr(src, ctypes.c_uint8), src.size, MAX_PIXELS, color,
                                 _ptr(out, ctypes.c_uint8))
     if status:
         raise UnsupportedImage(REASONS[status])

@@ -1,0 +1,226 @@
+"""Node bootstrap: construct the services in order, own the event bus.
+
+Port of the parts of ``spacedrive_tpu/node.py`` that the p2p plane stands
+on (upstream core/src/lib.rs:58-144): ``EventBus`` (a synchronous
+callback fan-out of CoreEvents, ``invalidate_query``), ``NodeConfig``
+(the same ``node_state.sdconfig`` file and migration, so one data dir
+serves either package), ``OrphanRemover``, and ``Node`` with its
+libraries, job manager, thumbnailer, ``start`` (libraries loaded, their
+interrupted jobs cold-resumed), ``start_p2p``, ``shutdown`` (which reaps
+the node's task subtree) and ``create_library``.
+
+The node hashes on the card: ``device="cuda"`` is the default, and
+``device="cpu"`` (the tests) runs the plain backends; ``node.backend`` is
+the scan backend that goes with it and ``jobs.services["device"]`` the
+device. The JAX node's observatories (health, fleet, incidents, the
+telemetry reporter), its sanitizer and its debug seed file are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import uuid as uuidlib
+from typing import Callable, Dict, List, Optional
+
+from . import persist, tasks
+from .jobs.manager import JobManager
+from .library import Libraries, Library
+
+NODE_CONFIG_VERSION = 1
+NODE_CONFIG_NAME = "node_state.sdconfig"
+
+
+class EventBus:
+    """CoreEvent fan-out (JobProgress, JobUpdate, InvalidateOperation,
+    Spacedrop*, P2PError) to synchronous callbacks, each a cheap filter."""
+
+    def __init__(self):
+        self._subs: List[Callable[[dict], None]] = []
+
+    def subscribe(self, cb: Callable[[dict], None]) -> Callable[[], None]:
+        self._subs.append(cb)
+        return lambda: self._subs.remove(cb)
+
+    def emit(self, event: dict) -> None:
+        for cb in list(self._subs):
+            try:
+                cb(event)
+            except Exception:
+                pass
+
+    def invalidate_query(self, library_id, key: str) -> None:
+        """invalidate_query! semantics (api/utils/invalidate.rs:131)."""
+        self.emit({"type": "InvalidateOperation", "library_id": str(library_id),
+                   "key": key})
+
+
+def migrate_node_config(raw: dict) -> dict:
+    """Upgrade a config step by step to NODE_CONFIG_VERSION
+    (util/migrator.rs:33-41)."""
+    version = raw.get("version", 0)
+    if version > NODE_CONFIG_VERSION:
+        raise ValueError(f"config version {version} is newer than supported "
+                         f"{NODE_CONFIG_VERSION} (time traveling backwards?)")
+    while version < NODE_CONFIG_VERSION:
+        if version == 0:
+            raw.setdefault("id", uuidlib.uuid4().hex)
+            raw.setdefault("name", "spacedrive-tpu-node")
+            raw.setdefault("features", [])
+        version += 1
+        raw["version"] = version
+    return raw
+
+
+class NodeConfig:
+    """node_state.sdconfig (node/config.rs:22-43)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        raw = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                raw = json.load(f)
+        self.raw = migrate_node_config(raw)
+        self.save()
+
+    @property
+    def id(self) -> bytes:
+        return bytes.fromhex(self.raw["id"])
+
+    @property
+    def name(self) -> str:
+        return self.raw["name"]
+
+    def save(self) -> None:
+        persist.atomic_write("node.config", self.path, json.dumps(self.raw, indent=2))
+
+
+class OrphanRemover:
+    """Deletes objects no file_path references, on a 1-minute tick or on
+    demand (core/src/object/orphan_remover.rs:17-40)."""
+
+    TICK_S = 60
+
+    def __init__(self, library: Library, owner: str = "orphan-remover"):
+        self.library = library
+        self._owner = owner
+        self._task: Optional[asyncio.Task] = None
+
+    def invoke(self) -> int:
+        from .sync.manager import cascade_local_fks
+
+        db = self.library.db
+        rows = db.run("node.orphan_objects")
+        if not rows:
+            return 0
+        sync = self.library.sync
+        ops = [sync.shared_delete("object", r["pub_id"]) for r in rows]
+        with sync.write_ops(ops) as conn:
+            for r in rows:
+                # membership rows have no ON DELETE: clear them first
+                cascade_local_fks(conn, "object", r["id"])
+                db.run("node.object_delete", (r["id"],), conn=conn)
+        return len(rows)
+
+    def start(self) -> None:
+        async def loop():
+            while True:
+                await asyncio.sleep(self.TICK_S)
+                await asyncio.to_thread(self.invoke)
+        self._task = tasks.spawn(f"orphan/{self.library.id.hex[:8]}", loop(),
+                                 owner=self._owner)
+
+    def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            self._task = None
+
+
+class Node:
+    def __init__(self, data_dir: str, device: str = "cuda"):
+        if device not in ("cuda", "cpu"):
+            raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+        self.data_dir = os.path.abspath(data_dir)
+        os.makedirs(self.data_dir, exist_ok=True)
+        self.device = device
+        self.backend = "cuda" if device == "cuda" else "plain"
+        self.config = NodeConfig(os.path.join(self.data_dir, NODE_CONFIG_NAME))
+        # the root of this node's task tree; shutdown reaps it
+        self.task_owner = tasks.unique_owner("node")
+        self.events = EventBus()
+        self.libraries = Libraries(self.data_dir)
+        from .media.actor import Thumbnailer
+
+        self.thumbnailer = Thumbnailer(self)
+        self.jobs = JobManager(
+            on_event=self.events.emit,
+            services={"data_dir": self.data_dir, "node": self,
+                      "thumbnailer": self.thumbnailer, "device": device})
+        self.orphan_removers: Dict[uuidlib.UUID, OrphanRemover] = {}
+        self.p2p = None  # created by start_p2p
+        self.libraries.on_event(self._on_library_event)
+
+    # -- lifecycle (ordering-sensitive: lib.rs:134-138) --------------------
+
+    async def start(self) -> None:
+        """Load the libraries, cold-resume their interrupted jobs, start
+        the actors."""
+        self.thumbnailer.start()
+        self.libraries.init()
+        for lib in self.libraries.list():
+            await self.jobs.cold_resume(lib)
+            self._ensure_actors(lib)
+
+    def _on_library_event(self, kind: str, library: Library) -> None:
+        if kind == "load":
+            self._ensure_actors(library)
+        elif kind == "delete":
+            remover = self.orphan_removers.pop(library.id, None)
+            if remover:
+                remover.stop()
+        self.events.invalidate_query(library.id, "library.list")
+
+    def _ensure_actors(self, library: Library) -> None:
+        if library.id not in self.orphan_removers:
+            remover = OrphanRemover(library, owner=f"{self.task_owner}/orphan-remover")
+            try:
+                remover.start()
+            except RuntimeError:
+                pass  # no running loop; invoke() still works
+            self.orphan_removers[library.id] = remover
+
+    async def start_p2p(self, host: str = "0.0.0.0", port: int = 0,
+                        enable_discovery: bool = True) -> int:
+        """Bring up the listener, discovery and the sync mesh; returns the
+        bound port."""
+        from .p2p.manager import P2PManager
+        from .p2p.sync_net import NetworkedLibraries
+
+        if self.p2p is None:
+            self.p2p = P2PManager(self, enable_discovery=enable_discovery)
+            NetworkedLibraries(self, self.p2p)
+        if self.p2p.server is not None:
+            return self.p2p.port
+        return await self.p2p.start(host, port)
+
+    async def shutdown(self) -> None:
+        """Stop jobs and actors, then reap the node's task subtree before
+        the library databases close, so cancelled work can still write."""
+        await self.jobs.shutdown()
+        await self.thumbnailer.stop()
+        if self.p2p is not None:
+            await self.p2p.stop()
+        for remover in self.orphan_removers.values():
+            remover.stop()
+        try:
+            await tasks.reap(self.task_owner)
+        finally:
+            for lib in self.libraries.list():
+                lib.db.close()
+
+    def create_library(self, name: str, lib_id=None) -> Library:
+        return self.libraries.create(name, node_name=self.config.name,
+                                     node_pub_id=self.config.id, lib_id=lib_id)

@@ -4,8 +4,8 @@ Each source in ``csrc/`` has a plain C interface and is compiled on its own
 into a shared library, loaded with ``ctypes``:
 
 - ``csrc/<name>.cu`` by ``nvcc`` for ``sm_90a`` (the CUDA kernels);
-- ``csrc/<name>.cpp`` by ``g++`` (host code: the native staging plane and
-  the image decoders).
+- ``csrc/<name>.cpp`` by ``g++`` (host code: the native staging plane, the
+  image decoders and the p2p tunnel's cryptography).
 
 The library's name carries a hash of the source and the flags, so an
 edited source is rebuilt and a stale library is never loaded. The flags
@@ -103,7 +103,7 @@ _SIGNATURES = {
         "sd_jpeg_header": (
             [_u8p, ctypes.c_int64, ctypes.c_int64, _i64p], ctypes.c_int64),
         "sd_jpeg_decode": (
-            [_u8p, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
+            [_u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _u8p], ctypes.c_int64),
     },
     "webpdec": {
         "sd_webp_alpha": (
@@ -125,6 +125,17 @@ _SIGNATURES = {
         "sd_tiff_chunks": (
             [_u8p, ctypes.c_int64, ctypes.c_int64, _i64p, _i64p] + [ctypes.c_int64] * 12
             + [_u8p], ctypes.c_int64),
+    },
+    "p2pcrypto": {
+        "sd_x25519": ([_u8p, _u8p, _u8p], None),
+        "sd_ed25519_base": ([_u8p, _u8p], None),
+        "sd_ed25519_check": ([_u8p, _u8p, _u8p, _u8p], ctypes.c_int),
+        "sd_aead_seal": (
+            [_u8p, _u8p, _u8p, ctypes.c_uint64, _u8p, ctypes.c_uint64, ctypes.c_char_p],
+            None),
+        "sd_aead_open": (
+            [_u8p, _u8p, _u8p, ctypes.c_uint64, _u8p, ctypes.c_uint64, ctypes.c_char_p],
+            ctypes.c_int),
     },
     "sdio_stage": {
         "sd_stage_large": (

@@ -4,8 +4,9 @@ Port of the part of ``spacedrive_tpu/persist.py`` the media plane uses:
 ``atomic_write`` (a same-directory tmp file, flushed, fsynced where the
 artifact's policy says so, renamed into place, its directory fsynced where
 the policy says so), ``seal`` (the same tail for a tmp file another
-program streamed: ffmpeg's video frame) and the two artifacts they write, ``media.thumbnail``
-and ``media.thumbs_version``, under the JAX package's names and policies.
+program streamed: ffmpeg's video frame) and the artifacts they write,
+``media.thumbnail``, ``media.thumbs_version`` and ``node.config``, under the
+JAX package's names and policies.
 The rest of that module (the WAL writers, scratch trees, crash points and
 the artifact table) is not ported yet.
 """
@@ -29,6 +30,8 @@ ARTIFACTS: Dict[str, Artifact] = {
         # correctness; the rename keeps readers off torn webp bytes.
         Artifact("media.thumbnail", "thumbnails/<shard>/<cas_id>.webp", "none"),
         Artifact("media.thumbs_version", "thumbnails/version.txt", "none"),
+        # Old-or-new after any crash: the node re-reads the surviving JSON.
+        Artifact("node.config", "node_state.sdconfig", "always"),
     )
 }
 

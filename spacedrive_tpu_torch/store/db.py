@@ -334,6 +334,27 @@ class Database:
         except sqlite3.Error:
             pass
 
+    def fold_wal(self, budget_bytes: int = None) -> bool:
+        """PASSIVE checkpoint once the WAL has grown past `budget_bytes`
+        (the WAL budget by default); never inside a transaction. A WAL that
+        keeps growing costs every page read a longer wal-index search, so
+        a long run of big commits (a clone's pages) folds it as it goes.
+        Returns whether it checkpointed."""
+        try:
+            if os.path.getsize(self.path + "-wal") <= (budget_bytes or self._WAL_BUDGET_BYTES):
+                return False
+        except OSError:
+            return False
+        self.checkpoint_passive()
+        return True
+
+    def ensure_lazy_indexes(self, table: str) -> None:
+        """Build a table's lazily declared indexes (``models.lazy_indexes``):
+        idempotent; the first call on a big op log pays one index build."""
+        for stmt in models.lazy_index_ddl(table):
+            with self._write_lock:
+                self._conn().execute(stmt)
+
     # -- typed helpers over the model registry ----------------------------
 
     def _write(self, conn, fn):

@@ -1,7 +1,7 @@
-"""The named SQL statements the scan chain and the near-dup job run.
+"""The named SQL statements the port runs.
 
 A subset of ``spacedrive_tpu/store/statements.py``: each statement the
-port's store, sync, library, indexer, identifier, validator, dedup and media code
+port's store, sync, node, library, indexer, identifier, validator, dedup and media code
 execute, under the JAX package's name and with its SQL text
 (whitespace-collapsed, as the JAX registry keeps it;
 ``tests/test_torch_store.py`` holds the two texts equal). Call sites hold
@@ -74,6 +74,97 @@ _declare("sync.blob.insert",
          "INSERT INTO shared_op_blob "
          "(model, min_ts, max_ts, n_ops, data, instance_id) "
          "VALUES (?, ?, ?, ?, ?, ?)", "write")
+_declare("sync.instances.set_watermark",
+         "UPDATE instance SET timestamp = ? WHERE pub_id = ?", "write")
+_declare("sync.instances.rows", "SELECT * FROM instance", "read", "many")
+_declare("sync.oplog.insert_relation",
+         "INSERT INTO relation_operation "
+         "(timestamp, relation, item_id, group_id, kind, data, instance_id) "
+         "VALUES (?, ?, ?, ?, ?, ?, ?)", "write")
+_declare("sync.oplog.max_ts_shared",
+         "SELECT MAX(timestamp) AS t FROM shared_operation", "read", "one")
+_declare("sync.oplog.max_ts_relation",
+         "SELECT MAX(timestamp) AS t FROM relation_operation", "read", "one")
+_declare("sync.oplog.max_ts_blob",
+         "SELECT MAX(max_ts) AS t FROM shared_op_blob", "read", "one")
+_declare("sync.oplog.has_tombstones",
+         "SELECT 1 FROM shared_operation WHERE kind = 'd' LIMIT 1", "read", "one")
+
+# -- sync read path and clone serving ---------------------------------------
+_declare("sync.blob.data_by_id",
+         "SELECT data FROM shared_op_blob WHERE id = ?", "read", "one")
+_declare("sync.clone.blob_metas",
+         "SELECT b.id, b.model, b.min_ts, b.max_ts, b.n_ops, b.instance_id, "
+         "i.pub_id AS pub FROM shared_op_blob b "
+         "JOIN instance i ON i.id = b.instance_id ORDER BY b.min_ts",
+         "read", "many")
+_declare("sync.blob.metas_batch",
+         "SELECT id, model, instance_id, data FROM shared_op_blob "
+         "ORDER BY min_ts LIMIT 16", "read", "many")
+_declare("sync.blob.metas_sweep",
+         "SELECT id, model, instance_id, data FROM shared_op_blob "
+         "ORDER BY min_ts", "read", "many")
+_declare("sync.blob.delete", "DELETE FROM shared_op_blob WHERE id = ?", "write")
+
+# -- sync ingest and last-writer-wins compare -------------------------------
+_declare("sync.quarantine.insert",
+         "INSERT OR IGNORE INTO quarantined_op (op_id, timestamp, data) "
+         "VALUES (?, ?, ?)", "write")
+_declare("sync.quarantine.all",
+         "SELECT id, data FROM quarantined_op ORDER BY timestamp", "read", "many")
+_declare("sync.quarantine.delete",
+         "DELETE FROM quarantined_op WHERE id = ?", "write")
+_declare("sync.lww.shared_tombstone",
+         "SELECT 1 FROM shared_operation WHERE model = ? "
+         "AND record_id = ? AND kind = 'd' LIMIT 1", "read", "one")
+_declare("sync.lww.shared_update_coverage",
+         "SELECT DISTINCT kind FROM shared_operation "
+         "WHERE model = ? AND record_id = ? AND timestamp >= ? "
+         "AND kind LIKE 'u:%'", "read", "many")
+_declare("sync.lww.superseding_updates",
+         "SELECT DISTINCT kind FROM shared_operation WHERE model = ? "
+         "AND record_id = ? AND timestamp > ? AND kind LIKE 'u:%'", "read", "many")
+_declare("sync.lww.shared_same_kind",
+         "SELECT timestamp FROM shared_operation WHERE timestamp >= ? "
+         "AND model = ? AND record_id = ? AND kind = ? "
+         "ORDER BY timestamp DESC LIMIT 1", "read", "one")
+_declare("sync.lww.relation_delete_check",
+         "SELECT 1 FROM relation_operation WHERE relation = ? "
+         "AND item_id = ? AND group_id = ? AND "
+         "((kind = 'd' AND timestamp >= ?) OR "
+         " (kind = 'c' AND timestamp > ?)) LIMIT 1", "read", "one")
+_declare("sync.lww.relation_nondelete_check",
+         "SELECT 1 FROM relation_operation WHERE relation = ? "
+         "AND item_id = ? AND group_id = ? AND timestamp >= ? "
+         "AND kind IN (?, 'd') LIMIT 1", "read", "one")
+_declare("sync.lww.relation_superseding",
+         "SELECT 1 FROM relation_operation WHERE relation = ? AND "
+         "item_id = ? AND group_id = ? AND kind = ? AND timestamp > ? "
+         "LIMIT 1", "read", "one")
+_declare("sync.pending.park",
+         "INSERT INTO pending_relation_op "
+         "(op_id, timestamp, data, item_model, item_key, "
+         "group_model, group_key) "
+         "SELECT ?, ?, ?, ?, ?, ?, ? WHERE NOT EXISTS "
+         "(SELECT 1 FROM pending_relation_op WHERE op_id = ?)", "write")
+_declare("sync.pending.any",
+         "SELECT 1 FROM pending_relation_op LIMIT 1", "read", "one")
+_declare("sync.pending.all",
+         "SELECT id, data FROM pending_relation_op ORDER BY timestamp",
+         "read", "many")
+_declare("sync.pending.delete",
+         "DELETE FROM pending_relation_op WHERE id = ?", "write")
+_declare("sync.pending.purge_refs",
+         "DELETE FROM pending_relation_op WHERE "
+         "(item_model = ? AND item_key = ?) OR "
+         "(group_model = ? AND group_key = ?)", "write")
+
+# -- node (node.py) ----------------------------------------------------------
+_declare("node.orphan_objects",
+         "SELECT o.id, o.pub_id FROM object o "
+         "LEFT JOIN file_path fp ON fp.object_id = o.id "
+         "WHERE fp.id IS NULL LIMIT 512", "read", "many")
+_declare("node.object_delete", "DELETE FROM object WHERE id = ?", "write")
 
 # -- library statistics (library.py) ----------------------------------------
 _declare("library.stats.path_count",

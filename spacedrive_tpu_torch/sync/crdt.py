@@ -1,11 +1,11 @@
 """CRDT operation vocabulary: op kinds, shared ops, ids and value packing.
 
-Port of the parts of ``spacedrive_tpu/sync/crdt.py`` that the scan chain
-writes with: ``OpKind``, the time-ordered 16-byte ids (``uuid4_bytes``,
-``uuid4_bytes_batch``, v7 layout), ``SharedOp`` / ``CRDTOperation``, the
-canonical op-log payload (``op_payload``) and ``pack_value`` through the
-port's msgpack codec, byte-identical to the JAX package's. Relation ops and the wire form wait for the receive half of
-sync.
+Port of ``spacedrive_tpu/sync/crdt.py``: ``OpKind``, the time-ordered
+16-byte ids (``uuid4_bytes``, ``uuid4_bytes_batch``, v7 layout),
+``SharedOp`` / ``RelationOp`` / ``CRDTOperation`` with their wire form
+(``to_wire`` / ``from_wire``, ``pack`` / ``unpack``), the canonical op-log
+payload (``op_payload``) and ``pack_value`` / ``unpack_value`` through the
+port's msgpack codec, byte-identical to the JAX package's.
 
 A ``CRDTOperation`` is (instance pub_id, NTP64 timestamp, op id, payload);
 kinds are "c", "u:<field>", "u:<a>+<b>" (multi-field update) and "d"
@@ -18,7 +18,7 @@ import os
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 import numpy as np
 
@@ -39,6 +39,11 @@ class OpKind:
         joined by "+" (the identifier's one {cas_id, object_id} op per
         file; applied per-field last-writer-wins)."""
         return "u:" + "+".join(sorted(fields))
+
+    @staticmethod
+    def update_fields(kind: str) -> list:
+        """Field names an update kind covers ("u:a+b" → [a, b])."""
+        return kind[2:].split("+") if kind.startswith("u:") else []
 
 
 def uuid4_bytes() -> bytes:
@@ -115,15 +120,78 @@ class SharedOp:
 
 
 @dataclass(frozen=True)
+class RelationOp:
+    relation: str                # relation model name
+    item_id: Any                 # item sync id
+    group_id: Any                # group sync id
+    field: Optional[str] = None
+    value: Any = None
+    delete: bool = False
+    values: Any = None           # a create's extra columns, all at once
+
+    @property
+    def kind(self) -> str:
+        if self.delete:
+            return OpKind.DELETE
+        if self.field is not None:
+            return OpKind.update(self.field)
+        return OpKind.CREATE
+
+
+@dataclass(frozen=True)
 class CRDTOperation:
     instance: bytes   # instance pub_id (16 bytes)
     timestamp: int    # NTP64
     id: bytes         # op id
-    typ: SharedOp
+    typ: Union[SharedOp, RelationOp]
 
     @classmethod
-    def new(cls, instance: bytes, timestamp: int, typ: SharedOp) -> "CRDTOperation":
+    def new(cls, instance: bytes, timestamp: int,
+            typ: Union[SharedOp, RelationOp]) -> "CRDTOperation":
         return cls(instance, timestamp, uuid4_bytes(), typ)
+
+    # -- wire encoding -----------------------------------------------------
+
+    def to_wire(self) -> dict:
+        t = self.typ
+        base = {"instance": self.instance, "timestamp": self.timestamp,
+                "id": self.id}
+        if isinstance(t, SharedOp):
+            base["shared"] = {
+                "model": t.model, "record_id": t.record_id,
+                "field": t.field, "value": t.value, "delete": t.delete,
+                "values": t.values,
+            }
+            if t.update:  # key only present on multi-field updates
+                base["shared"]["update"] = True
+        else:
+            base["relation"] = {
+                "relation": t.relation, "item_id": t.item_id,
+                "group_id": t.group_id, "field": t.field,
+                "value": t.value, "delete": t.delete, "values": t.values,
+            }
+        return base
+
+    @classmethod
+    def from_wire(cls, raw: dict) -> "CRDTOperation":
+        if "shared" in raw:
+            s = raw["shared"]
+            typ: Union[SharedOp, RelationOp] = SharedOp(
+                s["model"], s["record_id"], s["field"], s["value"],
+                s["delete"], s.get("values"), bool(s.get("update")))
+        else:
+            r = raw["relation"]
+            typ = RelationOp(
+                r["relation"], r["item_id"], r["group_id"], r["field"],
+                r["value"], r["delete"], r.get("values"))
+        return cls(raw["instance"], raw["timestamp"], raw["id"], typ)
+
+    def pack(self) -> bytes:
+        return pack_value(self.to_wire())
+
+    @classmethod
+    def unpack(cls, blob: bytes) -> "CRDTOperation":
+        return cls.from_wire(unpack_value(blob))
 
 
 def op_payload(field: Optional[str], value: Any, delete: bool,
@@ -140,3 +208,6 @@ def op_payload(field: Optional[str], value: Any, delete: bool,
 def pack_value(v: Any) -> bytes:
     return _msgpack.packb(v)
 
+
+def unpack_value(b: bytes) -> Any:
+    return _msgpack.unpackb(b)

@@ -1,5 +1,5 @@
 """Supervised background tasks: the part of ``spacedrive_tpu/tasks.py``
-that the watcher and the Locations actor need.
+that the watcher, the Locations actor, sync and p2p need.
 
 ``spawn`` is the one way they start background work: the registry holds a
 strong reference to every task until it finishes (an event loop keeps
@@ -14,15 +14,24 @@ period are left to it.
 from __future__ import annotations
 
 import asyncio
+import itertools
 import threading
 from typing import Coroutine, Dict, List, Optional
 
-__all__ = ["spawn", "live", "reap", "cancel_and_gather", "TASK_NAME_PREFIX"]
+__all__ = ["spawn", "live", "reap", "cancel_and_gather", "unique_owner",
+           "TASK_NAME_PREFIX"]
 
 TASK_NAME_PREFIX = "sdtpu:"
 
 _registry: Dict[asyncio.Task, str] = {}  # task → owner
 _registry_lock = threading.Lock()
+_owner_seq = itertools.count(1)
+
+
+def unique_owner(prefix: str) -> str:
+    """A process-unique owner root (``node#3``): two nodes in one process
+    never reap each other's tasks."""
+    return f"{prefix}#{next(_owner_seq)}"
 
 
 def _in_subtree(owner: str, root: str) -> bool:

@@ -99,10 +99,17 @@ def test_scan_covers_the_staging_plane_the_ring_and_the_scan_chain():
             port / "locations" / "non_indexed.py", port / "persist.py",
             *(port / "media" / f"{m}.py" for m in (
                 "exif", "pluscodes", "isobmff", "rawpreview", "images", "thumbnail",
-                "webpenc", "actor", "processor", "avmetadata"))} <= set(PORT_FILES)
+                "webpenc", "actor", "processor", "avmetadata")),
+            *(port / "sync" / f"{m}.py" for m in ("ingest", "clone_serve", "opblob", "crdt")),
+            *(port / "p2p" / f"{m}.py" for m in (
+                "_crypto", "identity", "proto", "wire", "spaceblock", "discovery", "mdns",
+                "sync_net", "manager")),
+            port / "node.py", port / "library.py", port / "timeouts.py",
+            port / "channels.py"} <= set(PORT_FILES)
     assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp",
                                                  "hamming.cu", "imgdec.cpp", "jpegdec.cpp",
-                                                 "tiffdec.cpp", "webpdec.cpp", "webpenc.cpp"}
+                                                 "tiffdec.cpp", "webpdec.cpp", "webpenc.cpp",
+                                                 "p2pcrypto.cpp"}
 
 
 def _foreign_includes(path: Path, text: str):
@@ -170,6 +177,25 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+def test_a_node_hashes_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
+    """``Node``'s default device is the card: its scan backend and the
+    device its jobs see are CUDA's, and a hash through them raises without
+    CUDA; ``device="cpu"`` runs the plain backends."""
+    from spacedrive_tpu_torch.node import Node
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    node = Node(str(tmp_path / "card"))
+    assert (node.device, node.backend, node.jobs.services["device"]) == ("cuda", "cuda", "cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        validator.checksums_for_files(["/nonexistent"], node.device)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        locations.light_scan_location(None, 1, backend=node.backend)
+    cpu = Node(str(tmp_path / "cpu"), device="cpu")
+    assert (cpu.device, cpu.backend) == ("cpu", "plain")
+    with pytest.raises(ValueError):
+        Node(str(tmp_path / "x"), device="tpu")
 
 
 def test_wrappers_take_the_plain_version_for_cpu_tensors():

@@ -602,3 +602,78 @@ def test_the_default_scan_chain_on_the_card_matches_plain(cuda, tmp_path, monkey
     assert on_card == run("plain") and on_card[2] == [2, 2, 2]
     assert len(on_card[0]) >= sum(p["row"] is not None for p in plants.values())
     assert len(on_card[1]) >= sum(p["thumb"] is not None for p in plants.values())
+
+
+# -- the p2p tunnel's primitives and a clone on the card's host ---------------
+
+@pytest.mark.parametrize("seed", range(4))
+def test_tunnel_primitives_native_match_plain(cuda, seed):
+    """The C++ X25519, Ed25519 and ChaCha20-Poly1305 against their plain
+    Python twins on the card's host (which has no `cryptography`)."""
+    from spacedrive_tpu_torch.p2p import _crypto
+
+    rng = np.random.default_rng(seed)
+    k, u, key = (rng.integers(0, 256, 32, np.uint8).tobytes() for _ in range(3))
+    nonce = rng.integers(0, 256, 12, np.uint8).tobytes()
+    msg = rng.integers(0, 256, int(rng.integers(0, 5000)), np.uint8).tobytes()
+    assert _crypto.x25519(k, u) == _crypto.x25519_plain(k, u)
+    assert _crypto.ed25519_public(k) == _crypto.ed25519_public(k, native=False)
+    sig = _crypto.ed25519_sign(k, msg)
+    assert sig == _crypto.ed25519_sign(k, msg, native=False)
+    pub = _crypto.ed25519_public(k)
+    assert _crypto.ed25519_verify(pub, msg, sig)
+    assert not _crypto.ed25519_verify(pub, msg + b"!", sig)
+    sealed = _crypto.seal(key, nonce, msg, b"aad")
+    assert sealed == _crypto.seal_plain(key, nonce, msg, b"aad")
+    assert _crypto.open_(key, nonce, sealed, b"aad") == msg
+    with pytest.raises(_crypto.InvalidTag):
+        _crypto.open_(key, nonce, bytes([sealed[0] ^ 1]) + sealed[1:], b"aad")
+
+
+def test_two_nodes_clone_a_library_scanned_on_the_card(cuda, tmp_path):
+    """A library scanned with K1 on the card clones over the tunnel into a
+    second node, which spacedrops a file back and checksums it with K2."""
+    from spacedrive_tpu_torch.jobs.manager import JobManager
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects import validator
+    from spacedrive_tpu_torch.ops import cas
+
+    root = tmp_path / "loc"
+    root.mkdir()
+    rng = np.random.default_rng(3)
+    for i in range(600):
+        (root / f"f{i:04d}.bin").write_bytes(rng.integers(0, 256, 2000 + i, np.uint8).tobytes())
+    big = tmp_path / "big.bin"
+    big.write_bytes(rng.integers(0, 256, 9 << 20, np.uint8).tobytes())
+
+    async def main():
+        a, b = Node(str(tmp_path / "a")), Node(str(tmp_path / "b"))
+        await a.start()
+        await b.start()
+        try:
+            lib_a = a.create_library("cuda-clone")
+            loc = locations.create_location(lib_a, str(root))
+            await locations.scan_location(a.jobs, lib_a, loc, with_media=False)
+            await a.jobs.wait_idle()
+            await a.start_p2p(host="127.0.0.1", enable_discovery=False)
+            pb = await b.start_p2p(host="127.0.0.1", enable_discovery=False)
+            b.p2p.on_pairing_request = lambda peer, info: True
+            assert await a.p2p.pair("127.0.0.1", pb, lib_a)
+            [lib_b] = b.libraries.list()
+            q = "SELECT pub_id, cas_id FROM file_path ORDER BY pub_id"
+            for _ in range(400):
+                if [tuple(r) for r in lib_b.db.query(q)] == [tuple(r) for r in lib_a.db.query(q)]:
+                    break
+                await asyncio.sleep(0.05)
+            assert [tuple(r) for r in lib_b.db.query(q)] == [tuple(r) for r in lib_a.db.query(q)]
+            drop = str(tmp_path / "drop.bin")
+            b.p2p.on_spacedrop = lambda peer, req: drop
+            assert await a.p2p.spacedrop("127.0.0.1", pb, str(big)) == "sent"
+            got, errors = validator.checksums_for_files([drop], b.device)
+            assert not errors and got[0] == cas.file_checksum(str(big))
+        finally:
+            await a.shutdown()
+            await b.shutdown()
+
+    asyncio.run(main())

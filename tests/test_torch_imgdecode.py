@@ -335,7 +335,6 @@ UNSUPPORTED = {
     "tiff_big_endian_bigtiff": lambda: chip_smoke.tiff_bytes(
         chip_smoke.tiff_image(_scene(), 2, 8), order=">", bigtiff=True),
     "tiff_cmyk": lambda: _pil_bytes("CMYK", "TIFF"),
-    "tiff_jpeg_compressed": lambda: _pil_tiff_compressed("RGB", "jpeg"),
     "tiff_ccitt_group4": lambda: _pil_tiff_compressed("1", "group4"),
     "tiff_floating_point_predictor": lambda: _tiff(compression=8, predictor=3),
     "tiff_lzw_code_past_table": lambda: chip_smoke.tiff_bytes((chip_smoke.tiff_image(
@@ -378,7 +377,8 @@ UNSUPPORTED = {
     "jpeg_arithmetic": lambda: _sof(_jpeg(), marker=b"\xff\xc9"),
     "jpeg_lossless": lambda: _sof(_jpeg(), marker=b"\xff\xc3"),
     "jpeg_12bit": lambda: _sof(_jpeg(), precision=12),
-    "jpeg_cmyk": lambda: _pil_bytes("CMYK", "JPEG"),
+    "jpeg_two_components": lambda: chip_smoke.jpeg_from_coefficients(
+        [np.zeros((2, 2, 64), np.int64)] * 2, 16, 16, [(1, 1)] * 2, [np.ones(64)] * 2),
     "jpeg_incomplete_progressive": lambda: _drop_last_scan(_jpeg(progressive=True)),
     "jpeg_block_past_16_bits": _extreme_block,
     "jpeg_oversubscribed_huffman_table": lambda: _dht_counts(

@@ -5,7 +5,8 @@
 package's ``image_to_grid`` grid, on every JPEG they take: baseline and
 progressive (PIL's progression uses successive approximation, AC
 refinement included), 4:4:4, 4:2:2, 4:2:0, 4:4:0 and 4:1:1, gray, restart
-intervals, Adobe RGB, odd sizes and chroma one or two samples wide, junk
+intervals, Adobe RGB, CMYK and YCCK (four components, as PIL reads them:
+Adobe-inverted), odd sizes and chroma one or two samples wide, junk
 before EOI. Inputs are PIL-written JPEGs of seeded numpy pixels, and the
 harness writer's files (``chip_smoke.jpeg_bytes``: what the near-dup
 corpus on the card holds), which PIL must read to the same grid.
@@ -112,6 +113,52 @@ def test_harness_writer_jpegs(sampling, progressive, restart, h, w, tmp_path):
                                      adobe_rgb=True)
     else:
         data = chip_smoke.jpeg_bytes(px, 85, sampling, progressive=progressive, restart=restart)
+    assert_decodes_as_pil(data, tmp_path)
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("h,w", [(37, 53), (2, 2), (17, 2), (64, 96)])
+def test_pil_cmyk_jpegs(subsampling, progressive, h, w, tmp_path):
+    """PIL's CMYK JPEGs (Adobe APP14, transform 0): PIL reads them as
+    ``CMYK;I``, every sample inverted, and so do the port's decoders; the
+    grid goes through ``cmyk2rgb``."""
+    px = np.concatenate([_pixels(h + w, h, w, smooth=True),
+                         _pixels(h * w, h, w, smooth=False)[..., :1]], axis=2)
+    data = _pil_jpeg(px, "CMYK", quality=80, subsampling=subsampling, progressive=progressive)
+    assert_decodes_as_pil(data, tmp_path)
+
+
+def _ycck_jpeg(seed: int, h: int, w: int, sampling, progressive: bool, restart: int) -> bytes:
+    """Four components of random quantised coefficients under an Adobe
+    APP14 with transform 2 (YCCK), from the harness writer."""
+    rng = np.random.default_rng(seed)
+    hmax, vmax = max(s[0] for s in sampling), max(s[1] for s in sampling)
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    blocks = []
+    for sh, sv in sampling:
+        b = rng.integers(-12, 13, (mcuy * sv, mcux * sh, 64))
+        b[..., 0] = rng.integers(-40, 41, b.shape[:2])
+        b[..., 16:] = 0
+        blocks.append(b)
+    data = chip_smoke.jpeg_from_coefficients(blocks, w, h, list(sampling),
+                                             [np.full(64, 3)] * 4, progressive=progressive,
+                                             restart=restart, ids=[1, 2, 3, 4])
+    at = data.index(b"\xff\xe0")
+    app0 = int.from_bytes(data[at + 2:at + 4], "big")
+    adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x02"
+    return data[:at] + adobe + data[at + 2 + app0:]
+
+
+@pytest.mark.parametrize("sampling", [((1, 1),) * 4, ((2, 2), (1, 1), (1, 1), (2, 2)),
+                                      ((2, 1), (1, 1), (1, 1), (2, 1))],
+                         ids=["444", "420", "422"])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("h,w", [(24, 40), (9, 2), (33, 17)])
+def test_ycck_jpegs(sampling, progressive, h, w, tmp_path):
+    """YCCK (Adobe transform 2): libjpeg turns it into CMYK (255 minus the
+    YCbCr-to-RGB of the first three, K as it is), PIL inverts that."""
+    data = _ycck_jpeg(h * w, h, w, sampling, progressive, restart=2 if progressive else 0)
     assert_decodes_as_pil(data, tmp_path)
 
 

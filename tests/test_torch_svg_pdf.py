@@ -375,19 +375,38 @@ def test_pdf_images_equal_the_jax_images(tmp_path, name):
 
 
 def test_a_jpeg_the_port_refuses_moves_on_to_the_next_image(tmp_path):
-    """A CMYK JPEG, which the port's decoder refuses (a decode gap): where
-    PIL decodes it, the port takes the next candidate, as the JAX function
-    does with whatever PIL raises."""
-    cmyk = io.BytesIO()
-    Image.new("CMYK", (50, 50), (10, 200, 30, 5)).save(cmyk, "JPEG")
+    """A JPEG whose frame header claims arithmetic coding, which the
+    port's decoder refuses (a decode gap; PIL decodes the Huffman data as
+    noise): where PIL returns it, the port takes the next candidate, as
+    the JAX function does with whatever PIL raises."""
+    jpg = _jpeg(_scene(50, 50, 3, 8))
+    at = jpg.index(b"\xff\xc0")
+    arithmetic = jpg[:at] + b"\xff\xc9" + jpg[at + 2:]
     rgb = _scene(12, 16, 3, 7)
-    path = str(tmp_path / "cmyk.pdf")
+    path = str(tmp_path / "arith.pdf")
     open(path, "wb").write(_pdf(
-        _image(50, 50, b"/DeviceCMYK", cmyk.getvalue(), b"/DCTDecode"),
+        _image(50, 50, b"/DeviceRGB", arithmetic, b"/DCTDecode"),
         _image(16, 12, b"/DeviceRGB", zlib.compress(rgb.tobytes()), b"/FlateDecode")))
-    assert jax_pdf.pdf_first_image(path).mode == "CMYK"
+    assert jax_pdf.pdf_first_image(path).size == (50, 50)
     px, mode = pdf.pdf_first_image(path)
     assert mode == "RGB" and np.array_equal(px, rgb)
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+def test_a_cmyk_dct_image_decodes_as_pil_reads_it(tmp_path, progressive):
+    """A /DCTDecode image in CMYK: PIL reads it Adobe-inverted (``CMYK;I``),
+    and so does the port's decoder."""
+    cmyk = io.BytesIO()
+    Image.fromarray(np.concatenate([_scene(40, 50, 3, 9), _scene(40, 50, 1, 10)[..., None]], -1),
+                    "CMYK").save(cmyk, "JPEG", progressive=progressive)
+    path = str(tmp_path / "cmyk.pdf")
+    open(path, "wb").write(_pdf(_image(50, 40, b"/DeviceCMYK", cmyk.getvalue(),
+                                       b"/DCTDecode")))
+    im = jax_pdf.pdf_first_image(path)
+    assert im.mode == "CMYK"
+    for native in (True, False):
+        px, mode = pdf.pdf_first_image(path, native=native)
+        assert mode == "CMYK" and np.array_equal(px, np.asarray(im))
 
 
 def test_png_unpredict_equals_the_jax_function():

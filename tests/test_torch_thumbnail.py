@@ -82,6 +82,12 @@ def _cases():
         "gif": lambda: _save(s3, "RGB", "GIF"),
         "rgba_tiff": lambda: _save(s4, "RGBA", "TIFF"),
         "jpeg": lambda: _save(s3, "RGB", "JPEG"),
+        # CMYK (Adobe-inverted) and a JPEG-compressed TIFF: refused until
+        # the decoder took four components and TIFF's compression 7
+        "cmyk_jpeg": lambda: _save(np.concatenate([s3, s3[..., :1]], -1), "CMYK", "JPEG"),
+        "cmyk_progressive_jpeg": lambda: _save(s4, "CMYK", "JPEG", progressive=True,
+                                               subsampling=2),
+        "jpeg_tiff": lambda: _save(s3, "RGB", "TIFF", compression="jpeg"),
         "1x4000": lambda: _save(_scene(4000, 1, 3, 3), "RGB", "PNG"),
         "4000x1": lambda: _save(_scene(1, 4000, 3, 4), "RGB", "PNG"),
         "7x5": lambda: _save(_scene(5, 7, 3, 5), "RGB", "PNG"),
@@ -152,7 +158,7 @@ def test_native_passes_equal_plain_on_odd_shapes():
         assert np.array_equal(imgdecode.resize_image(px, size), want)
     for mode, shape, dtype in (("L", (5, 9), np.uint8), ("LA", (5, 9, 2), np.uint8),
                                ("I;16", (5, 9), np.uint16), ("RGB", (5, 9, 3), np.uint8),
-                               ("RGBA", (5, 9, 4), np.uint8)):
+                               ("RGBA", (5, 9, 4), np.uint8), ("CMYK", (5, 9, 4), np.uint8)):
         px = rng.integers(0, 1000 if dtype == np.uint16 else 256, shape).astype(dtype)
         assert np.array_equal(imgdecode.thumb_rgb(px, mode),
                               imgdecode.thumb_rgb(px, mode, native=False))
@@ -189,20 +195,3 @@ def test_encoder_quality_against_libwebp():
     print(f"  mean size ratio {mean_ratio:.4f}")
     assert mean_ratio <= 2.0
 
-
-@pytest.mark.parametrize("case", ["cmyk_jpeg", "tiff_jpeg"])
-def test_decode_gaps_give_no_thumbnail(tmp_path, case):
-    """A known divergence (ROADMAP queue C): where PIL decodes a file the
-    port's decoder refuses (PERF.md §6, decode gaps), the JAX function
-    writes a thumbnail and the port's returns None, as either does for a
-    file it cannot read."""
-    s3 = _scene(24, 32, 3, 9)
-    if case == "cmyk_jpeg":
-        data, ext = _save(np.concatenate([s3, s3[..., :1]], -1), "CMYK", "JPEG"), "jpg"
-    else:
-        data, ext = _save(s3, "RGB", "TIFF", compression="jpeg"), "tiff"
-    path = str(tmp_path / f"in.{ext}")
-    with open(path, "wb") as f:
-        f.write(data)
-    assert jax_thumb.generate_thumbnail(path, str(tmp_path / "jax"), "cd" * 8) is not None
-    assert thumbnail.generate_thumbnail(path, str(tmp_path / "port"), "cd" * 8) is None

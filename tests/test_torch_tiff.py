@@ -49,6 +49,63 @@ def assert_decodes_as_pil(data: bytes, tmp_path) -> None:
         assert got.dtype == np.float32 and np.array_equal(got, grid), f"native={native_passes}"
 
 
+def _split_jpeg(jpg: bytes) -> tuple:
+    """A JPEG → (its tables-only stream, the stream without its tables and
+    APP0): the JPEGTables tag and one strip or tile, as libtiff writes them."""
+    pos, tables, rest = 2, b"\xff\xd8", b"\xff\xd8"
+    while True:
+        marker, length = jpg[pos + 1], int.from_bytes(jpg[pos + 2:pos + 4], "big")
+        seg = jpg[pos:pos + 2 + length]
+        if marker == 0xDA:
+            return tables + b"\xff\xd9", rest + jpg[pos:]
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif marker != 0xE0:
+            rest += seg
+        pos += 2 + length
+
+
+def _jpeg_tiff(px: np.ndarray, rps: int = None, tile=None, sampling=(2, 2), quality=80,
+               progressive=False, photometric=6, tag_sampling=None, short=False,
+               orientation=None) -> bytes:
+    """A JPEG-compressed TIFF (compression 7) of [h, w, 3] pixels from the
+    harness's JPEG writer: YCbCr at `sampling` (photometric 6) or RGB
+    components (2), strips of `rps` rows or `tile` (w, h) tiles, edges
+    replicated, one JPEGTables stream. `short` writes each strip's stream
+    at half its rows."""
+    h, w, _ = px.shape
+    boxes = ([(y, 0, min(rps, h - y), w) for y in range(0, h, rps)] if tile is None else
+             [(y, x, tile[1], tile[0]) for y in range(0, h, tile[1])
+              for x in range(0, w, tile[0])])
+    chunks, tables = [], None
+    for y, x, bh, bw in boxes:
+        part = px[y:y + bh, x:x + bw]
+        block = np.pad(part, ((0, bh - part.shape[0]), (0, bw - part.shape[1]), (0, 0)),
+                       mode="edge")
+        if short:
+            block = block[:max(1, bh // 2)]
+        jpg = chip_smoke.jpeg_bytes(block, quality=quality,
+                                    sampling=sampling if photometric != 2 else (1, 1),
+                                    progressive=progressive, adobe_rgb=photometric == 2)
+        t, r = _split_jpeg(jpg)
+        assert tables in (None, t)
+        tables = t
+        chunks.append(r)
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [7]),
+               262: (3, [photometric]), 277: (3, [3]), 284: (3, [1]),
+               347: (7, list(tables))}
+    if photometric == 6:
+        entries[530] = (3, list(tag_sampling or sampling))
+    if tile is None:
+        entries[278] = (4, [rps])
+    else:
+        entries[322], entries[323] = (3, [tile[0]]), (3, [tile[1]])
+    if orientation is not None:
+        entries[274] = (3, [orientation])
+    entries["tiled"] = tile is not None
+    return chip_smoke.tiff_bytes((entries, chunks))
+
+
 def _pil_tiff(mode: str, compression: str, h: int = 23, w: int = 37) -> bytes:
     px = _scene(h * w, h, w)
     if mode in ("I;16", "I;16B"):
@@ -293,12 +350,64 @@ REFUSED = {
         True),
     "cmyk": (lambda: _pil_tiff("CMYK", "tiff_lzw"), tiff.MODE, False),
     "ycbcr_deflate": (lambda: _pil_tiff("YCbCr", "tiff_deflate"), tiff.MODE, False),
-    "jpeg_compressed": (lambda: _pil_tiff("RGB", "jpeg"), tiff.COMPRESSION, False),
+    "old_style_jpeg": (lambda: chip_smoke.tiff_bytes(chip_smoke.tiff_image(
+        _scene(6, 6, 6), 2, 8, tags={259: (3, [6])})), tiff.COMPRESSION, True),
+    "jpeg_cmyk_photometric": (lambda: _jpeg_tiff(_scene(7, 16, 16), rps=16, photometric=5),
+                              tiff.MODE, True),
+    "jpeg_sampling_not_the_tag": (lambda: _jpeg_tiff(_scene(8, 16, 16), rps=16,
+                                                     sampling=(2, 1), tag_sampling=(2, 2)),
+                                  tiff.LAYOUT, True),
+    "jpeg_strip_shorter_than_its_rows": (lambda: _jpeg_tiff(_scene(9, 32, 16), rps=16,
+                                                            short=True), tiff.LAYOUT, False),
     "ccitt_group3": (lambda: _pil_tiff("1", "group3"), tiff.COMPRESSION, False),
     "ccitt_group4": (lambda: _pil_tiff("1", "group4"), tiff.COMPRESSION, False),
     "float32": (lambda: _pil_tiff("F", "raw"), tiff.MODE, False),
     "int32": (lambda: _pil_tiff("I", "tiff_lzw"), tiff.MODE, False),
 }
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L"])
+@pytest.mark.parametrize("quality", [30, 95])
+@pytest.mark.parametrize("h,w", [(23, 37), (1, 9), (64, 64), (17, 130)])
+def test_pil_jpeg_compressed_tiffs(mode, quality, h, w, tmp_path):
+    """PIL's own compression="jpeg" TIFFs (photometric 2 or 1, JPEGTables)."""
+    buf = io.BytesIO()
+    Image.fromarray(_scene(h + w, h, w)).convert(mode).save(buf, "TIFF", compression="jpeg",
+                                                            quality=quality)
+    assert_decodes_as_pil(buf.getvalue(), tmp_path)
+    for native_passes in (True, False):
+        with Image.open(io.BytesIO(buf.getvalue())) as im:
+            want = np.asarray(im)
+        assert np.array_equal(tiff.decode(buf.getvalue(), native_passes).pixels, want)
+
+
+JPEG_TIFFS = {
+    "ycbcr_420_strips": dict(rps=16),
+    "ycbcr_420_one_strip": dict(rps=45),
+    "ycbcr_420_tiles": dict(tile=(32, 32)),
+    "ycbcr_422_strips": dict(rps=16, sampling=(2, 1)),
+    "ycbcr_444_strips": dict(rps=8, sampling=(1, 1)),
+    "ycbcr_progressive": dict(rps=8, progressive=True),
+    "ycbcr_tiles_progressive_444": dict(tile=(16, 48), sampling=(1, 1), progressive=True),
+    "rgb_components_strips": dict(rps=16, photometric=2),
+    "rgb_components_tiles": dict(tile=(32, 16), photometric=2),
+    "ycbcr_oriented": dict(rps=16, orientation=6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(JPEG_TIFFS))
+def test_harness_jpeg_compressed_tiffs(case, tmp_path):
+    """YCbCr (libtiff's JPEGCOLORMODE_RGB, as PIL asks), RGB components,
+    strips and tiles, every chroma sampling, progressive streams."""
+    data = _jpeg_tiff(_scene(45, 45, 70), **JPEG_TIFFS[case])
+    assert_decodes_as_pil(data, tmp_path)
+    with Image.open(io.BytesIO(data)) as im:
+        im = im.convert("RGB")
+        from PIL import ImageOps
+        want = np.asarray(ImageOps.exif_transpose(im) if "oriented" in case else im)
+    for native_passes in (True, False):
+        d = tiff.decode(data, native_passes)
+        assert d.mode == "RGB" and np.array_equal(d.pixels, want)
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))

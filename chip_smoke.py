@@ -151,14 +151,33 @@ with CUDA events. Phases:
    the fold) must equal A's checksum. Printed: the handshake's ms, the
    clone's wall, ops/s, pages relayed and bytes sealed, the AEAD's MB/s,
    the rescan's and the convergence's s, the spacedrop's MB/s;
-14. the kernel table as one JSON line, launches summed over phases 4-13,
+14. api — run right after phase 13, on phase 7's library: an
+   ``ApiServer`` over ``Node(data_dir, device="cuda")`` on 127.0.0.1:0,
+   driven only through ``/rspc`` by the harness's own ``http.client`` and
+   masked-frame WebSocket clients. A second location of 2 000 files in the
+   system temp dir (200 PNGs from the harness's PNG writer, 40 of them
+   planted near-duplicate pairs, 30 groups of byte-equal files, two files
+   past the validator's 4 MiB cap) is created, ``locations.fullRescan``
+   (K1), ``jobs.objectValidator`` (K1, K2, the fold) and
+   ``jobs.nearDupDetector`` (the mask form) run through the API while a
+   ``jobs.progress`` subscription counts frames; ``search.duplicates`` and
+   ``search.nearDuplicates`` must return exactly the planted groups and
+   pairs, ``search.pathsCount`` phase 7's location's rows, a 500-row
+   ``search.paths`` window must arrive whole in a 64-bit-length frame, a
+   thumbnail fetch WebP bytes, a Range fetch the exact slice;
+   ``files.copyFiles``, ``files.duplicateFiles`` and ``files.deleteFiles``
+   must leave a tree a rescan's rows agree with. Printed: median and p99
+   round trips of 100-row ``search.paths`` windows over HTTP and over the
+   WebSocket on the 100 000-file location, the API-driven job walls, the
+   count of progress frames;
+15. the kernel table as one JSON line, launches summed over phases 4-14,
    the CV forms beside them with their 0.
 
 Launch counts are reset just before each main path (phases 4 and 5, each
 ring run of phase 6, the scans of phases 7, 8 and 9, each validator job,
 each near-dup job and each search of phase 10, phase 11's paused scan,
 its watcher's rescans and its browse, phase 12's scans and browse, and
-phase 13 as a whole)
+phases 13 and 14 as a whole)
 and read just after;
 launches made to compare or time a kernel are not counted. Every failure
 raises, so the exit code is 0 only if every phase passed. The last line is ``{"ok": true, "device": {...}}``.
@@ -5729,6 +5748,421 @@ def phase_sync(workdir: Path, data_dir: str, sums: dict, counts: dict,
     return out
 
 
+# -- phase 14: the node's API -----------------------------------------------
+
+API_FILES = 2000              # files of the second location, about
+API_IMAGES = 200              # PNGs among them, API_PAIRS near-dup pairs included
+API_PAIRS = 40
+API_DUP_GROUPS = 30           # exact-duplicate groups of 2-4 byte-equal files
+API_BIG = (9 << 20) + 4321    # two files past the validator's 4 MiB cap: K2 and the fold
+API_RTT_CALLS = 200           # search.paths windows of 100, over HTTP and over WebSocket
+
+
+class WsClient:
+    """The harness's own RFC 6455 client over a plain socket: masked
+    frames out, one reader thread in. ``call`` sends a query or mutation
+    and waits for its response; event frames are counted by subscription
+    id; ``widths`` records each received frame's length encoding (7, 16 or
+    64 bits)."""
+
+    def __init__(self, host: str, port: int):
+        import base64
+        import socket
+        import threading
+
+        self.sock = socket.create_connection((host, port), timeout=60)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET /rspc HTTP/1.1\r\nHost: {host}:{port}\r\n"
+                           "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                           f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n")
+                          .encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            byte = self.sock.recv(1)
+            require(byte, "the server closed the WebSocket handshake")
+            head += byte
+        require(head.startswith(b"HTTP/1.1 101"), f"handshake refused: {head[:80]!r}")
+        self.next_id = 1000
+        self.responses: dict = {}
+        self.events = collections.Counter()
+        self.widths = collections.Counter()
+        self.cond = threading.Condition()
+        self.closed = False
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _exact(self, n: int) -> bytes:
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = self.sock.recv(min(n - len(buf), 1 << 20))
+            if not chunk:
+                raise EOFError("WebSocket closed")
+            buf += chunk
+        return bytes(buf)
+
+    def _read(self) -> None:
+        try:
+            while True:
+                b0, b1 = self._exact(2)
+                n, width = b1 & 0x7F, 7
+                if n == 126:
+                    n, width = struct.unpack(">H", self._exact(2))[0], 16
+                elif n == 127:
+                    n, width = struct.unpack(">Q", self._exact(8))[0], 64
+                payload = self._exact(n)
+                if b0 & 0x0F == 0x8:
+                    break
+                frame = json.loads(payload)
+                with self.cond:
+                    self.widths[width] += 1
+                    if frame.get("type") == "event":
+                        self.events[frame["id"]] += 1
+                    else:
+                        self.responses[frame["id"]] = (frame, width)
+                    self.cond.notify_all()
+        except (EOFError, OSError, ValueError):
+            pass
+        finally:
+            with self.cond:
+                self.closed = True
+                self.cond.notify_all()
+
+    def send(self, frame: dict) -> None:
+        payload = json.dumps(frame).encode()
+        mask = os.urandom(4)
+        n = len(payload)
+        head = bytes([0x81]) + (bytes([0x80 | n]) if n < 126 else
+                                bytes([0x80 | 126]) + struct.pack(">H", n) if n < 1 << 16 else
+                                bytes([0x80 | 127]) + struct.pack(">Q", n))
+        key = (mask * (n // 4 + 1))[:n]
+        body = (int.from_bytes(payload, "little") ^ int.from_bytes(key, "little")) \
+            .to_bytes(n, "little") if n else b""
+        self.sock.sendall(head + mask + body)
+
+    def call(self, path: str, input=None, kind: str = "query", timeout: float = 600.0):
+        """(result, width of the response frame); raises on an error frame."""
+        self.next_id += 1
+        mid = self.next_id
+        self.send({"id": mid, "type": kind, "path": path, "input": input})
+        deadline = time.monotonic() + timeout
+        with self.cond:
+            while mid not in self.responses:
+                require(not self.closed, f"WebSocket closed waiting for {path}")
+                left = deadline - time.monotonic()
+                require(left > 0, f"no WebSocket response to {path} in {timeout} s")
+                self.cond.wait(left)
+            frame, width = self.responses.pop(mid)
+        require(frame["type"] == "response", f"{path}: {frame}")
+        return frame["result"], width
+
+    def subscribe(self, path: str, mid: int) -> None:
+        self.send({"id": mid, "type": "subscription", "path": path})
+        with self.cond:
+            while mid not in self.responses:
+                require(not self.closed, "WebSocket closed while subscribing")
+                self.cond.wait(60)
+            frame, _ = self.responses.pop(mid)
+        require(frame["type"] == "response", f"subscription refused: {frame}")
+
+    def close(self) -> None:
+        try:
+            self.sock.sendall(bytes([0x88, 0x82]) + bytes(4) + struct.pack(">H", 1000))
+        except OSError:
+            pass
+        self.reader.join(10)
+        self.sock.close()
+
+
+class HttpClient:
+    """One keep-alive ``http.client`` connection to the rspc routes."""
+
+    def __init__(self, host: str, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection(host, port, timeout=600)
+
+    def rpc(self, path: str, input=None, post: bool = True):
+        if post:
+            self.conn.request("POST", f"/rspc/{path}", body=json.dumps(input),
+                              headers={"Content-Type": "application/json"})
+        else:
+            from urllib.parse import quote
+
+            self.conn.request("GET", f"/rspc/{path}?input={quote(json.dumps(input))}")
+        resp = self.conn.getresponse()
+        body = json.loads(resp.read())
+        require(resp.status == 200 and "result" in body, f"{path}: {resp.status} {body}")
+        return body["result"]
+
+    def get(self, url: str, headers: Optional[dict] = None):
+        self.conn.request("GET", url, headers=headers or {})
+        resp = self.conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+
+
+def api_scene(rng, side: int) -> np.ndarray:
+    """A blocky RGB scene: 8 x 8 random colour blocks scaled to `side`."""
+    return np.kron(rng.integers(20, 236, (8, 8, 3)), np.ones((side // 8, side // 8, 1)))
+
+
+def write_api_location(root: Path, seed: int = 14) -> dict:
+    """The second location: API_IMAGES PNGs (API_PAIRS scenes, each beside
+    a copy with noise of ±3, and singles), API_DUP_GROUPS groups of
+    byte-equal files, two API_BIG files, and small files of their own bytes
+    up to about API_FILES. Returns {"pairs": {(a, b)}, "dup_groups":
+    [sorted paths], "big": [paths], "images": [paths], "files": n}, paths
+    relative to `root` with a leading "/"."""
+    rng = np.random.default_rng(seed)
+    out = {"pairs": set(), "dup_groups": [], "big": [], "images": []}
+    files = 0
+
+    def write(rel: str, data: bytes) -> None:
+        nonlocal files
+        p = root / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(data)
+        files += 1
+
+    def png(rel: str, pixels: np.ndarray) -> None:
+        h, w, _ = pixels.shape
+        rows = np.clip(pixels, 0, 255).astype(np.uint8).reshape(h, w * 3)
+        write(rel, png_bytes(rows, w, 2, 8, np.arange(h) % 5))
+        out["images"].append("/" + rel)
+
+    for k in range(API_PAIRS):
+        scene = api_scene(rng, 64)
+        a, b = f"photos/p{k // 20}/pair{k:03d}.png", f"photos/p{k // 20}/pair{k:03d}-edit.png"
+        png(a, scene)
+        png(b, scene + rng.integers(-3, 4, scene.shape))
+        out["pairs"].add(("/" + a, "/" + b))
+    for k in range(API_IMAGES - 2 * API_PAIRS):
+        png(f"photos/s{k // 50}/single{k:03d}.png", api_scene(rng, 8 * int(rng.integers(4, 9))))
+    for g in range(API_DUP_GROUPS):
+        data = rng.integers(0, 256, int(rng.integers(500, 40_000)), np.uint8).tobytes()
+        group = [f"docs/dups/g{g:02d}-{c}.bin" for c in range(2 + g % 3)]
+        for rel in group:
+            write(rel, data)
+        out["dup_groups"].append(sorted("/" + r for r in group))
+    for k in range(2):
+        rel = f"big/stream{k}.bin"
+        write(rel, rng.integers(0, 256, API_BIG, np.uint8).tobytes())
+        out["big"].append("/" + rel)
+    k = 0
+    while files < API_FILES:
+        write(f"docs/d{k // 100:02d}/note{k:04d}.txt",
+              f"note {k}\n".encode() + rng.integers(0, 256, int(rng.integers(1, 8000)),
+                                                    np.uint8).tobytes())
+        k += 1
+    out["files"] = files
+    return out
+
+
+def api_disk_paths(root: Path) -> set:
+    """Every regular file and directory under `root`, as the indexer names
+    them (``/dir/name.ext``)."""
+    paths = set()
+    for dirpath, dirs, names in os.walk(root):
+        rel = os.path.relpath(dirpath, root)
+        base = "/" if rel == "." else f"/{rel}/"
+        paths.update(base + n for n in dirs + names)
+    return paths
+
+
+def api_row_paths(rows) -> set:
+    return {f"{r['materialized_path']}{r['name']}" +
+            (f".{r['extension']}" if r["extension"] and not r["is_dir"] else "")
+            for r in rows}
+
+
+def percentile(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def phase_api(workdir: Path, data_dir: str, counts: dict, device: str = "cuda") -> dict:
+    """Phase 14: the node's front door. An ``ApiServer`` over
+    ``Node(data_dir, device)`` (phase 7's library) on 127.0.0.1:0, driven
+    only through ``/rspc`` by the harness's http.client and WebSocket
+    clients: a second location scanned, validated and searched for
+    near-duplicates on the card, file ops, thumbnails, Range fetches and
+    search latency over the 100 000-file location."""
+    import asyncio
+    import statistics
+    import threading
+
+    from spacedrive_tpu_torch.api.server import ApiServer
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.ops import blake3_cuda, hamming_cuda
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout: float = 900.0):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    async def boot():
+        node = Node(data_dir, device=device)
+        await node.start()
+        server = ApiServer(node)
+        return node, server, await server.start("127.0.0.1", 0)
+
+    out: dict = {}
+    api_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-api-")
+    root = Path(api_tmp.name) / "library"
+    node, server, port = on_loop(boot())
+    ws = None
+    try:
+        t0 = time.perf_counter()
+        made = write_api_location(root)
+        out["write_s"] = time.perf_counter() - t0
+        out["files_written"] = made["files"]
+        [lib] = node.libraries.list()
+        lid = str(lib.id)
+        # phase 7's location: the library's largest (phase 8 added phase 5's)
+        loc7, n7 = max(((r["location_id"], r["n"]) for r in lib.db.query(
+            "SELECT location_id, COUNT(*) AS n FROM file_path GROUP BY location_id")),
+            key=lambda t: t[1])
+
+        if device == "cuda":
+            torch.cuda.synchronize()
+        blake3_cuda.reset_launches()
+        hamming_cuda.reset_launches()
+        t_api = time.perf_counter()
+        http = HttpClient("127.0.0.1", port)
+        ws = WsClient("127.0.0.1", port)
+        ws.subscribe("jobs.progress", 1)
+        require(http.rpc("library.list", post=False)[0]["uuid"] == lid, "library.list")
+        loc, _ = ws.call("locations.create", {"library_id": lid, "path": str(root),
+                                              "dry_run": True}, kind="mutation")
+        walls = {}
+        for name, path, input in (
+                ("fullRescan", "locations.fullRescan", {"location_id": loc}),
+                ("objectValidator", "jobs.objectValidator", {"id": loc}),
+                ("nearDupDetector", "jobs.nearDupDetector", {"id": loc, "threshold": 10})):
+            t0 = time.perf_counter()
+            ws.call(path, {"library_id": lid, **input}, kind="mutation")
+            on_loop(node.jobs.wait_idle())
+            walls[name] = time.perf_counter() - t0
+        reports = http.rpc("jobs.reports", {"library_id": lid})
+        for r in reports[:5]:
+            require(r["status"] == 2, f"job {r['name']} ended with status {r['status']}: "
+                                      f"{(r['errors_text'] or '')[:200]}")
+        want = {"indexer", "file_identifier", "media_processor", "object_validator",
+                "near_dup_detector"}
+        require(want <= {r["name"] for r in reports[:5]}, f"jobs {[r['name'] for r in reports]}")
+
+        rows = lib.db.query("SELECT * FROM file_path WHERE location_id = ?", (loc,))
+        require(api_row_paths(rows) == api_disk_paths(root),
+                "the second location's rows != its files and directories")
+        require(all(r["integrity_checksum"] for r in rows if not r["is_dir"]),
+                "the validator left a file without its checksum")
+        dups = http.rpc("search.duplicates", {"library_id": lid, "location_id": loc})
+        got_groups = sorted(sorted(g["paths"]) for g in dups)
+        require(got_groups == sorted(made["dup_groups"]),
+                f"search.duplicates: {len(got_groups)} groups, planted "
+                f"{len(made['dup_groups'])}")
+        near = http.rpc("search.nearDuplicates", {"library_id": lid, "max_distance": 10})
+        got_pairs = {tuple(sorted((p["paths_a"][0], p["paths_b"][0]))) for p in near}
+        require(got_pairs == {tuple(sorted(p)) for p in made["pairs"]},
+                f"search.nearDuplicates: {len(got_pairs)} pairs, planted {len(made['pairs'])}; "
+                f"extra {sorted(got_pairs - made['pairs'])[:3]}")
+        out["near_dup_max_distance"] = max(p["distance"] for p in near)
+
+        n_paths = http.rpc("search.pathsCount", {"library_id": lid,
+                                                 "filter": {"location_id": loc7}})
+        require(n_paths == n7, f"search.pathsCount {n_paths} != the location's {n7} rows")
+        page, width = ws.call("search.paths", {"library_id": lid, "take": 500,
+                                               "filter": {"location_id": loc7}})
+        require(len(page["items"]) == 500 and width == 64,
+                f"a 500-row window came in a {width}-bit frame with {len(page['items'])} rows")
+
+        by_path = {f"{r['materialized_path']}{r['name']}" +
+                   (f".{r['extension']}" if r["extension"] else ""): r for r in rows}
+        pic = by_path[made["images"][0]]
+        status, headers, body = http.get(f"/spacedrive/thumbnail/{pic['cas_id']}.webp")
+        require(status == 200 and body[:4] == b"RIFF" and body[8:12] == b"WEBP"
+                and headers.get("Content-Type") == "image/webp", "thumbnail fetch")
+        big = by_path[made["big"][0]]
+        data = (root / made["big"][0][1:]).read_bytes()
+        lo, hi = 5_000_000, 5_000_000 + (3 << 20) - 1
+        status, headers, body = http.get(
+            f"/spacedrive/file/{lid}/{loc}/{big['id']}", {"Range": f"bytes={lo}-{hi}"})
+        require(status == 206 and body == data[lo:hi + 1]
+                and headers.get("Content-Range") == f"bytes {lo}-{hi}/{len(data)}",
+                "Range fetch")
+
+        # file ops through the API, then a rescan that must agree with the disk
+        src_ids = [by_path[p]["id"] for p in sorted(by_path) if p.startswith("/docs/d00/")][:20]
+        dir_id = by_path["/docs/d01"]["id"]
+        t0 = time.perf_counter()
+        ws.call("files.createFolder", {"library_id": lid, "location_id": loc,
+                                       "sub_path": "", "name": "copied"}, kind="mutation")
+        for path, input in (
+                ("files.copyFiles", {"source_location_id": loc, "target_location_id": loc,
+                                     "sources_file_path_ids": src_ids + [dir_id],
+                                     "target_location_relative_directory_path": "copied"}),
+                ("files.duplicateFiles", {"location_id": loc, "file_path_ids": src_ids[:10],
+                                          "target_relative_directory": "docs/d00"}),
+                ("files.deleteFiles", {"location_id": loc,
+                                       "file_path_ids": src_ids[10:] + [dir_id]})):
+            http.rpc(path, {"library_id": lid, **input})
+            on_loop(node.jobs.wait_idle())
+        ws.call("locations.fullRescan", {"library_id": lid, "location_id": loc},
+                kind="mutation")
+        on_loop(node.jobs.wait_idle())
+        walls["fileOps+rescan"] = time.perf_counter() - t0
+        rows = lib.db.query("SELECT * FROM file_path WHERE location_id = ?", (loc,))
+        disk = api_disk_paths(root)
+        require(api_row_paths(rows) == disk, "rows != disk after copy, duplicate and delete")
+        copied, dup_named = sum(p.startswith("/copied/") for p in disk), \
+            sum(" (1)." in p for p in disk)
+        require(copied == 20 + 1 + 100 and dup_named == 10 and "/docs/d01" not in disk,
+                f"copy, duplicate or delete left another tree ({copied} paths under "
+                f"/copied, {dup_named} ' (1)' names)")
+
+        # round trips: search.paths windows of 100 over the 100 000-file location
+        rtt = {"http": [], "ws": []}
+        for kind in ("http", "ws"):
+            cursor = 0
+            for _ in range(API_RTT_CALLS):
+                input = {"library_id": lid, "take": 100, "cursor": cursor,
+                         "filter": {"location_id": loc7}}
+                t0 = time.perf_counter()
+                page = http.rpc("search.paths", input) if kind == "http" \
+                    else ws.call("search.paths", input)[0]
+                rtt[kind].append((time.perf_counter() - t0) * 1e3)
+                require(len(page["items"]) == 100, "a short window")
+                cursor = page["cursor"]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["api_s"] = time.perf_counter() - t_api
+        launches = {**blake3_cuda.launches, **hamming_cuda.launches}
+        counts["api"] = launches
+        out.update(
+            launches=launches, job_walls_s=walls, progress_frames=ws.events[1],
+            frame_widths=dict(ws.widths), rows=len(rows), pairs=len(got_pairs),
+            dup_groups=len(got_groups), paths_in_100k_location=n_paths,
+            **{f"search_paths_{k}_ms": {"median": statistics.median(v),
+                                        "p99": percentile(v, 99), "n": len(v)}
+               for k, v in rtt.items()})
+        require(ws.events[1] > 0, "no jobs.progress frame arrived")
+        if device == "cuda":
+            for name in (blake3_cuda.FAST, blake3_cuda.WINDOWED, blake3_cuda.FOLD,
+                         hamming_cuda.NEAR_MASK):
+                require(launches[name] > 0, f"phase 14: {name} never launched over the API")
+    finally:
+        if ws is not None:
+            ws.close()
+        on_loop(server.stop())
+        on_loop(node.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+        api_tmp.cleanup()
+    emit("api", **out)
+    return out
+
+
 REPLACES = {
     "blake3_chunk_fast": "spacedrive_tpu/ops/blake3_pallas.py:121",
     "blake3_chunk_fast_cvs": "spacedrive_tpu/ops/blake3_pallas.py:121",
@@ -5802,6 +6236,8 @@ def main() -> int:
         mark("validate_job")
         phase_sync(Path(tmp), data_dir, sums, counts)
         mark("sync")
+        phase_api(Path(tmp), data_dir, counts)
+        mark("api")
     # The near-dup corpora and their library in the system temp dir.
     with tempfile.TemporaryDirectory(prefix="chip-smoke-near-dup-") as tmp:
         near_dup = phase_near_dup_job(Path(tmp), counts)

@@ -1,7 +1,10 @@
-"""The bounded queues of sync and p2p, as plain asyncio primitives.
+"""The bounded queues of the API, sync and p2p, as plain asyncio primitives.
 
 The port's copy of the entries of ``spacedrive_tpu/channels.py`` that its
-sync and p2p modules build, with the JAX capacities: the clone serve gate
+API host, sync and p2p modules build, with the JAX capacities: a
+WebSocket subscription's event buffer (``api.ws``, 64, snapshot events
+coalesced to the newest, a new event past the bound shed), the rspc HTTP
+admission window (``api.http.inflight``, 256, a request past it refused), the clone serve gate
 (``sync.clone.serve``, 2 FIFO slots), the tunnel's send window
 (``p2p.tunnel.frames``, 4 frames sealed but not drained), the ingester's
 event inbox (``sync.ingest.events``, 64, notifications coalesced) and
@@ -14,12 +17,14 @@ request outbox (``sync.ingest.requests``, 32, a full put waits under the
 from __future__ import annotations
 
 import asyncio
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any, Optional
 
 from .timeouts import with_timeout
 
 CAPACITY = {
+    "api.ws": 64,
+    "api.http.inflight": 256,
     "sync.clone.serve": 2,
     "p2p.tunnel.frames": 4,
     "sync.ingest.events": 64,
@@ -30,6 +35,73 @@ CAPACITY = {
 
 def capacity(name: str) -> int:
     return CAPACITY[name]
+
+
+class CoalescingChannel:
+    """``api.ws``: a bounded FIFO whose keyed items replace the pending item
+    under the same key (the newest snapshot wins); a new item past the
+    bound is shed and counted in ``shed``. Loop thread only."""
+
+    def __init__(self, name: str = "api.ws"):
+        self.cap = CAPACITY[name]
+        self._items: deque = deque()
+        self._keyed: dict = {}
+        self._ready = asyncio.Event()
+        self.shed = 0
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def put_nowait(self, item: Any, key: Optional[str] = None) -> bool:
+        if key is not None and key in self._keyed:
+            self._keyed[key][1] = item
+            return True
+        if len(self._items) >= self.cap:
+            self.shed += 1
+            return False
+        entry = [key, item]
+        self._items.append(entry)
+        if key is not None:
+            self._keyed[key] = entry
+        self._ready.set()
+        return True
+
+    def get_nowait(self) -> Any:
+        if not self._items:
+            raise asyncio.QueueEmpty
+        key, item = self._items.popleft()
+        if key is not None:
+            self._keyed.pop(key, None)
+        if not self._items:
+            self._ready.clear()
+        return item
+
+    async def get(self) -> Any:
+        while not self._items:
+            await self._ready.wait()
+        return self.get_nowait()
+
+
+class AdmissionWindow:
+    """``api.http.inflight``: one slot an in-flight dispatch; a request past
+    the capacity (or past `cap`, which narrows it, never widens) is refused
+    at once and counted in ``shed``."""
+
+    def __init__(self, cap: Optional[int] = None):
+        full = CAPACITY["api.http.inflight"]
+        self.cap = full if cap is None else max(1, min(int(cap), full))
+        self.inflight = 0
+        self.shed = 0
+
+    def try_acquire(self) -> bool:
+        if self.inflight >= self.cap:
+            self.shed += 1
+            return False
+        self.inflight += 1
+        return True
+
+    def release(self) -> None:
+        self.inflight = max(0, self.inflight - 1)
 
 
 def serve_semaphore() -> asyncio.Semaphore:

@@ -8,10 +8,10 @@ package's, so a job row reads the same to both packages.
 
 The port keeps its own ``JOB_REGISTRY``, what a resume dispatches on. Its
 jobs carry the JAX package's ``NAME``s (``indexer``, ``file_identifier``,
-``object_validator``, ``near_dup_detector``, ``media_processor``); the two
-registries never
-meet. ``JobManager`` imports the port's five job classes before it
-resumes anything, so a fresh process can ``cold_resume`` a library's job
+``object_validator``, ``near_dup_detector``, ``media_processor`` and the
+file-ops jobs ``file_copier``, ``file_cutter``, ``file_deleter``,
+``file_eraser``); the two registries never meet. ``JobManager`` imports the
+port's job classes before it resumes anything, so a fresh process can ``cold_resume`` a library's job
 table.
 """
 

@@ -39,11 +39,11 @@ class AlreadyRunning(JobManagerError):
 
 
 def _load_job_classes() -> None:
-    """Register the port's five job classes (their modules register them
-    on import) before a report row is turned back into a job."""
+    """Register the port's job classes (their modules register them on
+    import) before a report row is turned back into a job."""
     from ..locations import indexer_job  # noqa: F401
     from ..media import processor  # noqa: F401
-    from ..objects import dedup, identifier, validator  # noqa: F401
+    from ..objects import dedup, fs_ops, identifier, validator  # noqa: F401
 
 
 class JobBuilder:

@@ -2,7 +2,8 @@
 
 Port of ``spacedrive_tpu/locations/manager.py`` (upstream
 core/src/location/mod.rs): ``create_location`` writes the location row
-through sync and attaches indexer rules; ``scan_location`` chains
+through sync and attaches indexer rules, ``delete_location`` and
+``relink_location`` delete it or point it at a moved directory; ``scan_location`` chains
 ``IndexerJob`` → ``FileIdentifierJob`` (→ ``MediaProcessorJob`` with
 ``with_media``) through the job builder (mod.rs:417-445); ``scan_location_sub_path`` rescans one directory and
 what lies under it; ``light_scan_location`` (``locations/shallow.py``)
@@ -32,8 +33,8 @@ from ..store import uuid_bytes
 from .indexer_job import IndexerJob
 from .shallow import light_scan_location
 
-__all__ = ["LocationError", "create_location", "light_scan_location", "scan_location",
-           "scan_location_sub_path"]
+__all__ = ["LocationError", "create_location", "delete_location", "light_scan_location",
+           "relink_location", "scan_location", "scan_location_sub_path"]
 
 
 class LocationError(Exception):
@@ -70,6 +71,29 @@ def create_location(library, path: str, indexer_rule_ids: Sequence[int] = (),
                 "location_id": loc_id, "indexer_rule_id": rid,
             }, conn=conn)
     return loc_id
+
+
+def delete_location(library, location_id: int) -> None:
+    """Delete a location row through sync (its file paths cascade)."""
+    row = library.db.run("location.pub_by_id", (location_id,))
+    if row is None:
+        raise LocationError("no such location")
+    with library.sync.write_ops(
+            [library.sync.shared_delete("location", row["pub_id"])]) as conn:
+        library.db.delete("location", location_id, conn=conn)
+
+
+def relink_location(library, location_id: int, new_path: str) -> None:
+    """Point a location at a moved directory (location/mod.rs relink)."""
+    new_path = os.path.abspath(new_path)
+    if not os.path.isdir(new_path):
+        raise LocationError(f"{new_path} is not a directory")
+    row = library.db.run("location.pub_by_id", (location_id,))
+    if row is None:
+        raise LocationError("no such location")
+    with library.sync.write_ops([library.sync.shared_update(
+            "location", row["pub_id"], "path", new_path)]) as conn:
+        library.db.update("location", location_id, {"path": new_path}, conn=conn)
 
 
 async def scan_location(jobs: JobManager, library, location_id: int,

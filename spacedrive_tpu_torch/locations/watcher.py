@@ -8,10 +8,10 @@ directories. inotify is driven through ctypes (Linux); the polling
 watcher is the fallback where inotify is absent, or when
 ``SDTPU_WATCHER=poll`` forces it.
 
-The port has no ``Node``: ``Locations`` takes an ``on_event`` callback and
-an owner name for its background tasks, as the port's ``JobManager``
-does, and the ``backend`` of its rescans, ``"cuda"`` by default (K1 on
-the card).
+``Locations`` takes the ``Node`` that owns it (its event bus, task tree and
+scan backend), as the JAX actor does; without a node it takes an
+``on_event`` callback, an owner name for its background tasks and the
+``backend`` of its rescans, ``"cuda"`` by default (K1 on the card).
 """
 
 from __future__ import annotations
@@ -296,16 +296,22 @@ class Locations:
     after it, never dropped. ``on_event`` receives ``WatcherError`` and
     ``InvalidateOperation`` events."""
 
-    def __init__(self, on_event: Optional[Callable[[dict], None]] = None,
-                 owner: str = "locations", backend: str = "cuda"):
+    def __init__(self, node=None, on_event: Optional[Callable[[dict], None]] = None,
+                 owner: Optional[str] = None, backend: Optional[str] = None):
+        if node is not None:
+            on_event = on_event or node.events.emit
+            owner = owner or f"{node.task_owner}/locations"
+            backend = backend or node.backend
+        backend = backend or "cuda"
         if backend == "cuda":
             resolve_device("cuda")  # raises here where CUDA is absent
+        self.node = node
         self.on_event = on_event or (lambda e: None)
         self.backend = backend
         self.watchers: Dict[tuple, object] = {}
         self._scanning: Set[tuple] = set()
         self._pending: Dict[tuple, Set[str]] = {}
-        self._owner = owner
+        self._owner = owner or "locations"
 
     def watch_location(self, library, location_id: int) -> bool:
         loc = library.db.run("location.by_id", (location_id,))

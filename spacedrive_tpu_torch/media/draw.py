@@ -217,6 +217,7 @@ def _fill_edges(canvas: np.ndarray, edges: List[_Edge], ink) -> None:
     ymax = min(ymax, height)
     for y in range(ymin, ymax + 1):
         xx = []
+        joined = set()
         for i, cur in enumerate(table):
             if not cur.ymin <= y <= cur.ymax:
                 continue
@@ -226,32 +227,41 @@ def _fill_edges(canvas: np.ndarray, edges: List[_Edge], ink) -> None:
                 # Needed to draw consistent polygons
                 xx.append(x)
             elif cur.dx != 0 and _roundf(x) == x:
-                _corner(table, i, y, ymax, xx)
+                _corner(table, i, y, ymax, xx, joined)
         xx.sort()
         for i in range(1, len(xx), 2):
             hline(canvas, _round_up_f(xx[i - 1]), y, _round_down_f(xx[i]), ink)
 
 
-def _corner(table, i: int, y: int, ymax: int, xx: list) -> None:
+def _corner(table, i: int, y: int, ymax: int, xx: list, joined: set) -> None:
     """Connect discontiguous corners: where this row's crossing of edge i is
-    a whole number and rounds to that of an earlier edge of the same slope
-    sign whose end row this is, and that edge goes on to the next row (the
-    previous row on the last), the crossing moves next to where the two
-    edges cross that row, if it lies more than a pixel past both."""
+    a whole number, the first other edge of the same slope sign that starts
+    (or ends) on this row as edge i does, and crosses it at the same rounded
+    x, makes a corner with it, whether it comes before or after edge i.
+    Where that edge goes on to the next row (the previous row on the last),
+    the crossing moves next to where the two edges cross that row, if it
+    lies more than a pixel past both. A corner is joined once a row: its
+    second edge keeps its crossing (`joined` holds the pairs)."""
     cur = table[i]
-    for other in table[:i]:
-        if (cur.dx > 0 and other.dx <= 0) or (cur.dx < 0 and other.dx >= 0):
+    for k, other in enumerate(table):
+        if k == i or (cur.dx > 0 and other.dx <= 0) or (cur.dx < 0 and other.dx >= 0):
             continue
-        if y not in (other.ymin, other.ymax) or _roundf(xx[-1]) != _roundf(other.at(y)):
+        if not (y == cur.ymin == other.ymin or y == cur.ymax == other.ymax):
             continue
+        if _roundf(xx[-1]) != _roundf(other.at(y)):
+            continue
+        if frozenset((i, k)) in joined:
+            return
         offset = -1 if y == ymax else 1
         if other.ymin <= y + offset <= other.ymax:
             a, b = cur.at(y + offset), other.at(y + offset)
             x = xx[-1]
             if x > a + 1 and x > b + 1:
                 xx[-1] = _roundf(max(a, b)) + 1
+                joined.add(frozenset((i, k)))
             elif x < a - 1 and x < b - 1:
                 xx[-1] = _roundf(min(a, b)) - 1
+                joined.add(frozenset((i, k)))
         return
 
 

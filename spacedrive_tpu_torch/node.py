@@ -1,20 +1,22 @@
 """Node bootstrap: construct the services in order, own the event bus.
 
-Port of the parts of ``spacedrive_tpu/node.py`` that the p2p plane stands
-on (upstream core/src/lib.rs:58-144): ``EventBus`` (a synchronous
-callback fan-out of CoreEvents, ``invalidate_query``), ``NodeConfig``
-(the same ``node_state.sdconfig`` file and migration, so one data dir
-serves either package), ``OrphanRemover``, and ``Node`` with its
-libraries, job manager, thumbnailer, ``start`` (libraries loaded, their
-interrupted jobs cold-resumed), ``start_p2p``, ``shutdown`` (which reaps
-the node's task subtree) and ``create_library``.
+Port of ``spacedrive_tpu/node.py`` (upstream core/src/lib.rs:58-144):
+``EventBus`` (a synchronous callback fan-out of CoreEvents,
+``invalidate_query``), ``NodeConfig`` (the same ``node_state.sdconfig``
+file and migration, so one data dir serves either package; feature flags),
+``OrphanRemover``, and ``Node`` with its libraries, job manager,
+thumbnailer, locations actor (``locations/watcher.Locations``), ``start``
+(libraries loaded, the ``init.json`` seed applied, interrupted jobs
+cold-resumed), ``start_p2p``, ``shutdown`` (which reaps the node's task
+subtree) and ``create_library``: what the API's procedures read from a
+node.
 
-The node hashes on the card: ``device="cuda"`` is the default, and
-``device="cpu"`` (the tests) runs the plain backends; ``node.backend`` is
-the scan backend that goes with it and ``jobs.services["device"]`` the
-device. The JAX node's observatories (health, fleet, incidents, the
-telemetry reporter), its sanitizer and its debug seed file are not
-ported yet.
+The node hashes on the card: ``device="cuda"`` is the default and raises
+at once where CUDA is absent; ``device="cpu"`` (the tests) runs the plain
+backends. ``node.backend`` is the scan backend that goes with it and
+``jobs.services["device"]`` the device. The JAX node's observatories
+(health, fleet, incidents, the telemetry reporter) and its sanitizer wait
+for the observability plane.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Callable, Dict, List, Optional
 from . import persist, tasks
 from .jobs.manager import JobManager
 from .library import Libraries, Library
+from .locations.watcher import Locations
+from .ops.blake3_torch import resolve_device
 
 NODE_CONFIG_VERSION = 1
 NODE_CONFIG_NAME = "node_state.sdconfig"
@@ -94,6 +98,19 @@ class NodeConfig:
     def name(self) -> str:
         return self.raw["name"]
 
+    @property
+    def features(self) -> List[str]:
+        return list(self.raw.get("features", []))
+
+    def toggle_feature(self, feature: str) -> bool:
+        """BackendFeature toggle (api/mod.rs:28-48); returns the new state."""
+        feats = set(self.raw.get("features", []))
+        enabled = feature not in feats
+        (feats.add if enabled else feats.remove)(feature)
+        self.raw["features"] = sorted(feats)
+        self.save()
+        return enabled
+
     def save(self) -> None:
         persist.atomic_write("node.config", self.path, json.dumps(self.raw, indent=2))
 
@@ -143,6 +160,8 @@ class Node:
     def __init__(self, data_dir: str, device: str = "cuda"):
         if device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+        if device == "cuda":
+            resolve_device("cuda")  # raises here where CUDA is absent
         self.data_dir = os.path.abspath(data_dir)
         os.makedirs(self.data_dir, exist_ok=True)
         self.device = device
@@ -160,16 +179,26 @@ class Node:
             services={"data_dir": self.data_dir, "node": self,
                       "thumbnailer": self.thumbnailer, "device": device})
         self.orphan_removers: Dict[uuidlib.UUID, OrphanRemover] = {}
+        self.locations = Locations(self)
         self.p2p = None  # created by start_p2p
         self.libraries.on_event(self._on_library_event)
 
     # -- lifecycle (ordering-sensitive: lib.rs:134-138) --------------------
 
     async def start(self) -> None:
-        """Load the libraries, cold-resume their interrupted jobs, start
-        the actors."""
+        """Load the libraries, apply the data dir's ``init.json`` seed,
+        cold-resume the interrupted jobs, start the actors."""
         self.thumbnailer.start()
         self.libraries.init()
+        # Before cold_resume, so reset_on_startup never deletes a library
+        # whose jobs were just re-dispatched; a bad seed file is reported,
+        # never a boot loop.
+        from .debug_init import apply_init_file
+
+        try:
+            await apply_init_file(self)
+        except Exception as e:
+            self.events.emit({"type": "DebugInitError", "error": str(e)})
         for lib in self.libraries.list():
             await self.jobs.cold_resume(lib)
             self._ensure_actors(lib)
@@ -210,6 +239,7 @@ class Node:
         """Stop jobs and actors, then reap the node's task subtree before
         the library databases close, so cancelled work can still write."""
         await self.jobs.shutdown()
+        await self.locations.close()
         await self.thumbnailer.stop()
         if self.p2p is not None:
             await self.p2p.stop()
@@ -220,6 +250,10 @@ class Node:
         finally:
             for lib in self.libraries.list():
                 lib.db.close()
+
+    async def close(self) -> None:
+        """Alias of ``shutdown``."""
+        await self.shutdown()
 
     def create_library(self, name: str, lib_id=None) -> Library:
         return self.libraries.create(name, node_name=self.config.name,

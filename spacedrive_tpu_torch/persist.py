@@ -5,7 +5,8 @@ Port of the part of ``spacedrive_tpu/persist.py`` the media plane uses:
 artifact's policy says so, renamed into place, its directory fsynced where
 the policy says so), ``seal`` (the same tail for a tmp file another
 program streamed: ffmpeg's video frame) and the artifacts they write,
-``media.thumbnail``, ``media.thumbs_version`` and ``node.config``, under the
+``media.thumbnail``, ``media.thumbs_version``, ``node.config``, and the
+backup restore's ``library.db_image`` and ``library.config``, under the
 JAX package's names and policies.
 The rest of that module (the WAL writers, scratch trees, crash points and
 the artifact table) is not ported yet.
@@ -32,6 +33,10 @@ ARTIFACTS: Dict[str, Artifact] = {
         Artifact("media.thumbs_version", "thumbnails/version.txt", "none"),
         # Old-or-new after any crash: the node re-reads the surviving JSON.
         Artifact("node.config", "node_state.sdconfig", "always"),
+        Artifact("library.config", "libraries/<uuid>.sdlibrary", "always"),
+        # A backup restore re-runs from the zip; it writes the db before the
+        # config, so a config never points at an absent db.
+        Artifact("library.db_image", "libraries/<uuid>.db (backup restore)", "always"),
     )
 }
 

@@ -389,6 +389,10 @@ class Database:
                f"WHERE {id_col} = ?")
         self._write(conn, lambda c: c.execute(sql, [*values.values(), row_id]))
 
+    def delete(self, table: str, row_id: Any, conn=None, id_col: str = "id") -> None:
+        sql = f"DELETE FROM {table} WHERE {id_col} = ?"
+        self._write(conn, lambda c: c.execute(sql, (row_id,)))
+
     def upsert(self, table: str, key: Dict[str, Any], values: Dict[str, Any],
                conn=None) -> None:
         cols = list(key) + list(values)

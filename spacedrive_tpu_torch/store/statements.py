@@ -1,8 +1,10 @@
 """The named SQL statements the port runs.
 
 A subset of ``spacedrive_tpu/store/statements.py``: each statement the
-port's store, sync, node, library, indexer, identifier, validator, dedup and media code
-execute, under the JAX package's name and with its SQL text
+port's store, sync, node, library, locations, indexer, identifier,
+validator, dedup, media, file-ops and API code execute (the ``api.*``
+shapes included, as the JAX registry declares them, though their SQL is
+built inline where it runs), under the JAX package's name and with its SQL text
 (whitespace-collapsed, as the JAX registry keeps it;
 ``tests/test_torch_store.py`` holds the two texts equal). Call sites hold
 only the name and run it through ``Database.run`` / ``run_many`` /
@@ -285,3 +287,134 @@ _declare("media.data_exists",
          "SELECT id FROM media_data WHERE object_id = ?", "read", "one")
 _declare("media.known_cas",
          "SELECT DISTINCT cas_id FROM file_path WHERE cas_id IS NOT NULL", "read", "many")
+
+# -- locations: the API's CRUD (locations/manager.py, api/procedures.py) --
+_declare("location.all",
+         "SELECT * FROM location", "read", "many")
+_declare("location.path_by_id",
+         "SELECT path FROM location WHERE id = ?", "read", "one")
+_declare("location.pub_by_id",
+         "SELECT pub_id FROM location WHERE id = ?", "read", "one")
+_declare("location.id_paths",
+         "SELECT id, path FROM location", "read", "many")
+_declare("location.rule.all",
+         "SELECT * FROM indexer_rule", "read", "many")
+_declare("location.rule.by_id",
+         "SELECT * FROM indexer_rule WHERE id = ?", "read", "one")
+_declare("location.rule.default_flag",
+         "SELECT default_rule FROM indexer_rule WHERE id = ?", "read", "one")
+_declare("location.detach_rules",
+         "DELETE FROM indexer_rule_in_location WHERE location_id = ?", "write")
+_declare("location.attach_rule",
+         "INSERT OR IGNORE INTO indexer_rule_in_location (location_id, "
+         "indexer_rule_id) VALUES (?, ?)", "write")
+_declare("node.instance_pub_by_row",
+         "SELECT pub_id FROM instance WHERE id = ?", "read", "one")
+
+# -- api (api/procedures.py, objects/fs_ops.py) ---------------------------
+_declare("api.tag.all",
+         "SELECT * FROM tag", "read", "many")
+_declare("api.tag.by_id",
+         "SELECT * FROM tag WHERE id = ?", "read", "one")
+_declare("api.tag.for_object",
+         "SELECT t.* FROM tag t JOIN tag_on_object to2 ON to2.tag_id = "
+         "t.id WHERE to2.object_id = ?", "read", "many")
+_declare("api.tag.object_ids",
+         "SELECT object_id FROM tag_on_object WHERE tag_id = ?", "read", "many")
+_declare("api.tag.assigned_objects",
+         "SELECT o.pub_id AS opub FROM tag_on_object tob JOIN object o "
+         "ON o.id = tob.object_id WHERE tob.tag_id = ?", "read", "many")
+_declare("api.tag.clear_assignments",
+         "DELETE FROM tag_on_object WHERE tag_id = ?", "write")
+_declare("api.tag.unassign",
+         "DELETE FROM tag_on_object WHERE tag_id = ? AND object_id = ?", "write")
+_declare("api.tag.assign",
+         "INSERT OR IGNORE INTO tag_on_object (tag_id, object_id) VALUES "
+         "(?, ?)", "write")
+_declare("api.label.list_with_counts",
+         "SELECT l.*, COUNT(lo.label_id) AS object_count FROM label l "
+         "LEFT JOIN label_on_object lo ON lo.label_id = l.id GROUP BY "
+         "l.id", "read", "many")
+_declare("api.label.by_id",
+         "SELECT * FROM label WHERE id = ?", "read", "one")
+_declare("api.label.for_object",
+         "SELECT l.* FROM label l JOIN label_on_object lo ON lo.label_id "
+         "= l.id WHERE lo.object_id = ?", "read", "many")
+_declare("api.label.assigned_objects",
+         "SELECT o.pub_id AS opub FROM label_on_object lo JOIN object o "
+         "ON o.id = lo.object_id WHERE lo.label_id = ?", "read", "many")
+_declare("api.label.clear_assignments",
+         "DELETE FROM label_on_object WHERE label_id = ?", "write")
+_declare("api.label.unassign",
+         "DELETE FROM label_on_object WHERE label_id = ? AND object_id = "
+         "?", "write")
+_declare("api.label.assign",
+         "INSERT OR IGNORE INTO label_on_object (label_id, object_id, "
+         "date_created) VALUES (?, ?, ?)", "write")
+_declare("api.object.by_id",
+         "SELECT * FROM object WHERE id = ?", "read", "one")
+_declare("api.object.exists",
+         "SELECT 1 FROM object WHERE id = ?", "read", "one")
+_declare("api.object.set_access_time",
+         "UPDATE object SET date_accessed = ? WHERE id = ?", "write")
+_declare("api.object.kind_counts",
+         "SELECT kind, COUNT(*) AS n FROM object GROUP BY kind", "read", "many")
+_declare("api.file_path.by_id",
+         "SELECT * FROM file_path WHERE id = ?", "read", "one")
+_declare("api.file_path.for_object",
+         "SELECT * FROM file_path WHERE object_id = ?", "read", "many")
+_declare("api.media_data.for_object",
+         "SELECT * FROM media_data WHERE object_id = ?", "read", "one")
+_declare("api.file_path.rename_descendants",
+         "UPDATE file_path SET materialized_path = "
+         "REPLACE(materialized_path, ?, ?) WHERE location_id = ? AND "
+         "materialized_path LIKE ? ESCAPE '\\'", "write")
+_declare("api.job.reports",
+         "SELECT id, name, action, status, task_count, "
+         "completed_task_count, errors_text, metadata, parent_id, "
+         "date_created, date_started, date_completed, "
+         "date_estimated_completion FROM job ORDER BY date_created DESC "
+         "LIMIT 100", "read", "many")
+_declare("api.job.clear",
+         "DELETE FROM job WHERE id = ? AND status NOT IN (?, ?, ?)", "write")
+_declare("api.job.clear_all",
+         "DELETE FROM job WHERE status NOT IN (?, ?, ?)", "write")
+_declare("api.preference.all",
+         "SELECT * FROM preference", "read", "many")
+_declare("api.preference.delete",
+         "DELETE FROM preference WHERE key = ?", "write")
+_declare("api.notification.recent",
+         "SELECT * FROM notification ORDER BY id DESC LIMIT 50", "read", "many")
+_declare("api.notification.dismiss",
+         "UPDATE notification SET read = 1 WHERE id = ?", "write")
+_declare("api.notification.dismiss_all",
+         "UPDATE notification SET read = 1", "write")
+_declare("api.object.pubs_by_ids",
+         "SELECT id, pub_id FROM object WHERE id IN ({w})", "read", "many", registry=SHAPES)
+_declare("api.grouping.list",
+         "SELECT g.*, COUNT(r.{i}) AS object_count FROM {i} g LEFT JOIN "
+         "{i} r ON r.{i} = g.id GROUP BY g.id", "read", "many", registry=SHAPES)
+_declare("api.grouping.get",
+         "SELECT * FROM {i} WHERE id = ?", "read", "one", registry=SHAPES)
+_declare("api.grouping.exists",
+         "SELECT 1 FROM {i} WHERE id = ?", "read", "one", registry=SHAPES)
+_declare("api.grouping.object_ids",
+         "SELECT object_id FROM {i} WHERE {i} = ?", "read", "many", registry=SHAPES)
+_declare("api.search.paths_window",
+         "SELECT fp.* FROM file_path fp WHERE {w} ORDER BY {w} {w}, "
+         "fp.id LIMIT ? OFFSET ?", "read", "many", registry=SHAPES)
+_declare("api.search.paths_cursor",
+         "SELECT fp.* FROM file_path fp WHERE {w} AND fp.id > ? ORDER BY "
+         "fp.id LIMIT ?", "read", "many", registry=SHAPES)
+_declare("api.search.paths_count",
+         "SELECT COUNT(*) AS n FROM file_path fp WHERE {w}", "read", "one", registry=SHAPES)
+_declare("api.search.objects_window",
+         "SELECT o.* FROM object o WHERE {w} ORDER BY {w} {w}, o.id "
+         "LIMIT ? OFFSET ?", "read", "many", registry=SHAPES)
+_declare("api.search.objects_cursor",
+         "SELECT o.* FROM object o WHERE {w} AND o.id > ? ORDER BY o.id "
+         "LIMIT ?", "read", "many", registry=SHAPES)
+_declare("api.search.objects_count",
+         "SELECT COUNT(*) AS n FROM object o WHERE {w}", "read", "one", registry=SHAPES)
+_declare("api.search.paths_for_objects",
+         "SELECT * FROM file_path WHERE object_id IN ({w})", "read", "many", registry=SHAPES)

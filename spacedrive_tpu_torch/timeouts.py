@@ -1,14 +1,14 @@
-"""Declared budgets for the network awaits of sync and p2p.
+"""Declared budgets for the network awaits of the API, sync and p2p.
 
 The port's own copy of the parts of ``spacedrive_tpu/timeouts.py`` that
-its sync and p2p modules read: ``with_timeout(name, awaitable)``,
+its API host, sync and p2p modules read: ``with_timeout(name, awaitable)``,
 ``deadline(name)`` (one budget over a block of awaits), the budgets the
 p2p and sync contracts name at the JAX defaults (README's timeout table),
 and the retry ladders (``Backoff``, ``with_backoff``, ``RetrySchedule``)
 with the sync announcer's ``p2p.announce.reconnect`` policy. The
 effective budget is the default times ``SDTPU_TIMEOUT_SCALE``. The JAX
 registry's counters and the budgets of planes the port has not ported
-(api, fleet, obs over http, the pipeline channels) are left to it.
+(fleet, obs over http, the pipeline channels) are left to it.
 """
 
 from __future__ import annotations
@@ -32,6 +32,16 @@ class TimeoutContract:
 
 TIMEOUTS: Dict[str, TimeoutContract] = {
     c.name: c for c in (
+        TimeoutContract("api.http.read", 30.0,
+                        "Reading a request's head or body: bounds a slow-loris client."),
+        TimeoutContract("api.http.write", 60.0,
+                        "One streamed response chunk: a stalled client releases the "
+                        "handler instead of pinning it."),
+        TimeoutContract("api.ws.prepare", 30.0,
+                        "The WebSocket upgrade handshake on the rspc route."),
+        TimeoutContract("api.ws.send", 30.0,
+                        "One WebSocket frame to a subscriber: a dead client cannot "
+                        "wedge the emit path."),
         TimeoutContract("p2p.connect", 20.0,
                         "Outbound TCP dial + authenticated tunnel handshake."),
         TimeoutContract("p2p.file.response", 60.0,

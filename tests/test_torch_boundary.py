@@ -2,9 +2,10 @@
 
 - Nothing under ``spacedrive_tpu_torch/`` nor ``chip_smoke.py`` imports
   ``jax``, ``jaxlib`` or the JAX package ``spacedrive_tpu`` (the port keeps
-  its own copies of the framework-free modules), nor ``msgpack``, ``PIL``
-  or ``cryptography``, which the GPU machine does not have (the port
-  carries its own msgpack codec), and no C++ or CUDA source
+  its own copies of the framework-free modules), nor ``msgpack``, ``PIL``,
+  ``cryptography``, ``aiohttp`` or ``argon2``, which the GPU machine does
+  not have (the port carries its own msgpack codec and HTTP/WebSocket
+  server), and no C++ or CUDA source
   of the port includes a file outside ``spacedrive_tpu_torch/csrc/``.
 - Asking an entry point for CUDA where there is none raises instead of
   running on the CPU, and a kernel wrapper given a CPU tensor takes the
@@ -20,9 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+from spacedrive_tpu_torch.api.server import serve
 from spacedrive_tpu_torch.locations import manager as locations
 from spacedrive_tpu_torch.locations import watcher
 from spacedrive_tpu_torch.locations.non_indexed import walk_ephemeral
+from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects import validator
 from spacedrive_tpu_torch.objects.dedup import NearDupDetectorJob
 from spacedrive_tpu_torch.objects.identifier import FileIdentifierJob
@@ -32,7 +35,8 @@ from spacedrive_tpu_torch.ops import (blake3_cuda, blake3_torch, hamming, hammin
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "spacedrive_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "spacedrive_tpu", "msgpack", "PIL", "cryptography"}
+FORBIDDEN = {"jax", "jaxlib", "spacedrive_tpu", "msgpack", "PIL", "cryptography", "aiohttp",
+             "argon2"}
 CSRC = ROOT / "spacedrive_tpu_torch" / "csrc"
 NATIVE_SOURCES = sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh", ".cpp", ".h"))
 INCLUDE = re.compile(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]', re.M)
@@ -76,6 +80,7 @@ def test_forbidden_import_detector_catches_every_spelling():
            "import importlib\nimportlib.import_module('jaxlib')\n"
            "def f():\n    import msgpack\n"
            "from PIL import Image\n__import__('cryptography.hazmat')\n"
+           "from aiohttp import web\nimport argon2.low_level\n"
            "from spacedrive_tpu_torch.ops import cas\nfrom . import x\n"
            "from spacedrive_tpu_torch import _msgpack\n")
     found = {m.split(".")[0] for m in _imported(ast.parse(src))} & FORBIDDEN
@@ -105,7 +110,12 @@ def test_scan_covers_the_staging_plane_the_ring_and_the_scan_chain():
                 "_crypto", "identity", "proto", "wire", "spaceblock", "discovery", "mdns",
                 "sync_net", "manager")),
             port / "node.py", port / "library.py", port / "timeouts.py",
-            port / "channels.py"} <= set(PORT_FILES)
+            port / "channels.py",
+            *(port / "api" / f"{m}.py" for m in (
+                "router", "procedures", "serialization", "server", "webui", "_http")),
+            *(port / f"{m}.py" for m in (
+                "cli", "__main__", "auth", "backups", "volume", "debug_init")),
+            port / "objects" / "fs_ops.py"} <= set(PORT_FILES)
     assert {p.name for p in NATIVE_SOURCES} >= {"blake3_chunk.cu", "sdio_stage.cpp",
                                                  "hamming.cu", "imgdec.cpp", "jpegdec.cpp",
                                                  "tiffdec.cpp", "webpdec.cpp", "webpenc.cpp",
@@ -166,13 +176,15 @@ def _grid():
     lambda: locations.light_scan_location(None, 1),
     lambda: walk_ephemeral("/nonexistent", compute_cas_ids=True),
     lambda: watcher.Locations(),
+    lambda: Node("/nonexistent/node"),
+    lambda: asyncio.run(serve("/nonexistent/serve", port=0)),
 ], ids=["blake3_words", "words_to_device", "cas_ids", "checksums",
         "cas_ids_for_files", "validator", "streaming", "stage_batch_native",
         "cas_pool", "run_overlapped", "words_to_device_non_blocking",
         "file_identifier_job", "file_identifier_job_batch", "object_validator_job",
         "scan_location", "scan_location_sub_path", "phash_torch", "phash_files",
         "near_dup_pairs", "near_dup_pairs_device", "near_dup_detector_job",
-        "light_scan_location", "walk_ephemeral", "locations_actor"])
+        "light_scan_location", "walk_ephemeral", "locations_actor", "node", "serve"])
 def test_cuda_entry_points_raise_without_cuda(monkeypatch, call):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -181,12 +193,16 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch, call):
 
 def test_a_node_hashes_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
     """``Node``'s default device is the card: its scan backend and the
-    device its jobs see are CUDA's, and a hash through them raises without
-    CUDA; ``device="cpu"`` runs the plain backends."""
-    from spacedrive_tpu_torch.node import Node
-
+    device its jobs see are CUDA's; without CUDA the node refuses to start,
+    and a hash through its backend raises; ``device="cpu"`` runs the plain
+    backends."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Node(str(tmp_path / "card"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     node = Node(str(tmp_path / "card"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert (node.device, node.backend, node.jobs.services["device"]) == ("cuda", "cuda", "cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         validator.checksums_for_files(["/nonexistent"], node.device)

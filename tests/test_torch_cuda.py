@@ -677,3 +677,41 @@ def test_two_nodes_clone_a_library_scanned_on_the_card(cuda, tmp_path):
             await b.shutdown()
 
     asyncio.run(main())
+
+
+def test_the_api_path_launches_every_main_path_kernel(cuda, tmp_path, monkeypatch):
+    """chip_smoke's phase 14 at a small size: an ApiServer over a CUDA node
+    scans, validates and searches near-duplicates through /rspc; K1, K2,
+    the fold and the mask form launch, and the planted duplicate groups and
+    near-duplicate pairs come back exactly (phase_api requires both)."""
+    import chip_smoke
+    from spacedrive_tpu_torch.jobs.manager import JobManager
+    from spacedrive_tpu_torch.library import Libraries
+    from spacedrive_tpu_torch.locations import manager as locations
+    from spacedrive_tpu_torch.ops import hamming_cuda
+
+    monkeypatch.setattr(chip_smoke, "API_RTT_CALLS", 5)
+    data_dir, root = str(tmp_path / "data"), tmp_path / "identify"
+    rng = np.random.default_rng(1)
+    for i in range(1200):
+        p = root / f"scan-{i // 300:03d}" / f"f{i:05d}.bin"
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(rng.integers(0, 256, 300 + i, np.uint8).tobytes())
+
+    async def scan():
+        lib = Libraries(data_dir).create("api")
+        loc = locations.create_location(lib, str(root))
+        jobs = JobManager(services={"data_dir": data_dir, "device": "cuda"})
+        await locations.scan_location(jobs, lib, loc, with_media=False)
+        await jobs.wait_idle()
+        await jobs.shutdown()
+        lib.db.close()
+
+    asyncio.run(scan())
+    counts = {}
+    out = chip_smoke.phase_api(tmp_path, data_dir, counts)
+    for name in (blake3_cuda.FAST, blake3_cuda.WINDOWED, blake3_cuda.FOLD,
+                 hamming_cuda.NEAR_MASK):
+        assert counts["api"][name] > 0, name
+    assert out["pairs"] == chip_smoke.API_PAIRS
+    assert out["dup_groups"] == chip_smoke.API_DUP_GROUPS

@@ -499,19 +499,52 @@ def test_colours_and_the_rgba_resize_equal_pil():
 # neither case is reached by an SVG path, whose pie slices are the joints'
 # square boxes under their own line and whose random documents above match.
 GAPS = {
-    # A self-intersecting polygon whose corner fix PIL takes from a later
-    # edge: one pixel, full alpha.
-    "polygon": (lambda d, ink: d.polygon([(57.0, 24.0), (32.0, 28.0), (4.0, 47.0), (10.0, 55.0),
-                                          (49.0, 22.0), (49.0, 53.0), (2.0, 51.0)], fill=ink),
-                lambda c, ink: draw.polygon(c, [(57.0, 24.0), (32.0, 28.0), (4.0, 47.0),
-                                                (10.0, 55.0), (49.0, 22.0), (49.0, 53.0),
-                                                (2.0, 51.0)], ink), 1),
+    # A polygon that passes through one vertex twice, so that four edges
+    # meet on one row at one crossing: PIL joins one of the two corners
+    # there, the port both. One pixel, full alpha.
+    "polygon": (lambda d, ink: d.polygon([(45.0, 12.0), (59.0, 13.0), (45.0, 12.0), (9.0, 31.0)],
+                                         fill=ink),
+                lambda c, ink: draw.polygon(c, [(45.0, 12.0), (59.0, 13.0), (45.0, 12.0),
+                                                (9.0, 31.0)], ink), 1),
     # A pie slice of a flat 24 x 4 box: PIL clips 6 more pixels off its side.
     "pieslice": (lambda d, ink: d.pieslice([(13.95, 39.66), (37.04, 43.46)], 71.968, 156.972,
                                            fill=ink),
                  lambda c, ink: draw.pieslice(c, [(13.95, 39.66), (37.04, 43.46)], 71.968,
                                               156.972, ink), 6),
 }
+
+
+def _polygon_pair(pts, ink=(200, 30, 40, 255)):
+    want = _pil((60, 50), lambda d: d.polygon(pts, fill=ink))
+    canvas = np.zeros((50, 60, 4), np.uint8)
+    draw.polygon(canvas, pts, np.array(ink, np.uint8))
+    return canvas, want
+
+
+def test_polygon_joins_a_corner_from_a_later_edge_as_pil_does():
+    """The corner fix takes its partner from a later edge too: this
+    self-intersecting polygon's corner at (57, 24) and a triangle's at its
+    bottom vertex (56, 42)."""
+    for pts in ([(57.0, 24.0), (32.0, 28.0), (4.0, 47.0), (10.0, 55.0), (49.0, 22.0),
+                 (49.0, 53.0), (2.0, 51.0)], [(56.0, 42.0), (14.0, 32.0), (15.0, 23.0)],
+                [(17.0, 34.0), (35.0, 46.0), (11.0, 30.0)]):
+        canvas, want = _polygon_pair(pts)
+        assert np.array_equal(canvas, want), pts
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_polygon_equals_pil_on_random_self_intersecting_polygons(seed):
+    """300 random polygons of 3 to 24 vertices (most of them
+    self-intersecting), integer and fractional, some off the canvas: equal
+    to PIL pixel for pixel, but where a vertex repeats (GAPS["polygon"])."""
+    rng = np.random.default_rng(seed)
+    for _ in range(300):
+        k = int(rng.integers(3, 25))
+        pts = [(float(rng.integers(-5, 66)) + (0.5 if seed % 2 else 0.0),
+                float(rng.integers(-5, 56))) for _ in range(k)]
+        canvas, want = _polygon_pair(pts)
+        if not np.array_equal(canvas, want):
+            assert len({(int(x), int(y)) for x, y in pts}) < len(pts), pts
 
 
 @pytest.mark.parametrize("name", sorted(GAPS))

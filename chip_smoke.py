@@ -34,8 +34,9 @@ with CUDA events. Phases:
 6. ring — ``overlap.run_overlapped`` (the depth-N ring: native staging
    into pinned pages, H2D on a copy stream, K1 on a compute stream) at
    depths 1, 3, 3, 1 in turn over phase 4's 12288 large files (6 batches of
-   2048) and a 16384 x 120 000-byte sparse corpus (8 batches of 2048),
-   every digest held against the plain torch K1 on the Python readers' rows,
+   2048) and a 12 288 x 120 000-byte sparse corpus (6 batches of 2048),
+   every batch's digests held against the plain torch K1 on the Python
+   readers' rows,
    after a staging probe (the C plane at 1-8 threads on one batch, the
    per-file cost of each system call, the corpus's file system);
 7. scan — a 100 000-file location through the port's own job system:
@@ -170,7 +171,38 @@ with CUDA events. Phases:
    round trips of 100-row ``search.paths`` windows over HTTP and over the
    WebSocket on the 100 000-file location, the API-driven job walls, the
    count of progress frames;
-15. the kernel table as one JSON line, launches summed over phases 4-14,
+15. observe — the observability plane: (a) phase 4's 16 384 files
+   identified with telemetry on and off (files/s of each; the CAS IDs
+   phase 4's; ``sd_identifier_batch_files`` and
+   ``sd_identifier_batches_total`` moved by exactly the call with telemetry
+   on and not at all with it off; the kernel registry's K1 count in the
+   ``cas_ids/cuda`` scope equal to ``launches``); (b) a child process with
+   ``SDTPU_PROFILE`` (the torch profiler is process-wide) and the
+   sanitizer in raise mode identifies 2 048 of them, validates a 9 MiB
+   file and compares 2 000 digests with the mask form; the parent reads
+   its Chrome trace, which must name the ``cas_ids/cuda``,
+   ``seqhash.reduce`` and ``hamming.pairs`` regions and hold each
+   kernel's device events (K1, K2, the fold, the mask form) inside its
+   region; (e) in that child the three paths record no violation, and
+   ``.item()`` on a CUDA tensor inside ``device_scope`` raises and is
+   recorded as ``host_transfer``; (c) a 16-batch ring at depth 3 whose
+   flight-recorder export passes ``validate_chrome_trace`` with a window
+   per measured batch (printed: how many each of stage, h2d and kernel
+   bound), each batch's kernel lane after its h2d lane and the kernel
+   lanes one after another; (d) a fresh ``Node(device="cuda")`` behind an
+   ``ApiServer`` scans a 2 000-file location through ``/rspc`` under a
+   trace id the WebSocket client sends in ``tp``: ``GET /metrics``
+   parses and its identifier counters match the scan, ``node.spans``
+   returns the ``rpc/locations.fullRescan`` span (parented on the
+   client's span), the jobs' and the ``cas_ids`` spans under that trace,
+   ``node.trace.export`` and ``node.health`` validate, and
+   ``store.commit=error`` armed for one write makes the ``store.busy``
+   backoff give up into exactly one ``backoff.give_up`` bundle, read
+   back through ``incidents.list``, ``incidents.get`` and
+   ``incidents.ack``. Printed: files/s on and off,
+   the ring's binding counts, the ``/metrics`` scrape's ms and the trace
+   file's bytes;
+16. the kernel table as one JSON line, launches summed over phases 4-15,
    the CV forms beside them with their 0.
 
 Launch counts are reset just before each main path (phases 4 and 5, each
@@ -891,6 +923,9 @@ def staging_probe(workdir: Path, batch) -> dict:
                 fs=mount, kernel=platform.release(), cores=staging.default_threads())
 
 
+RING_SPARSE_FILES = 12_288
+
+
 def phase_ring(workdir: Path, large_files: list, counts: dict):
     from spacedrive_tpu_torch.ops import blake3_cuda, cas, overlap
 
@@ -901,7 +936,8 @@ def phase_ring(workdir: Path, large_files: list, counts: dict):
          np.array([size for _, size in large_files[k:k + B]], np.uint64))
         for k in range(0, len(large_files), B)]}
     t0 = time.perf_counter()
-    sparse = overlap.make_sparse_corpus(str(workdir / "ring"), 16384, 120_000, B)
+    # 12 288 sparse files (cut from 16 384 to make room for phase 15)
+    sparse = overlap.make_sparse_corpus(str(workdir / "ring"), RING_SPARSE_FILES, 120_000, B)
     rng = np.random.default_rng(7)
     for paths, _ in sparse:  # distinct bytes per file, so a leaked page shows
         for p in paths:
@@ -912,6 +948,8 @@ def phase_ring(workdir: Path, large_files: list, counts: dict):
     corpora["sparse_120k"] = sparse
     corpus_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    # Every batch is held against its plain version: a page reused before its
+    # copy finished would corrupt whichever batch it served.
     plain = {name: plain_digests(batches) for name, batches in corpora.items()}
     plain_s = time.perf_counter() - t0
     emit("ring_setup", batch_files=B, batches={k: len(v) for k, v in corpora.items()},
@@ -937,8 +975,8 @@ def phase_ring(workdir: Path, large_files: list, counts: dict):
                     f"ring {name} depth {depth}: K1 launches {launches} != {want} batches")
             require(sum(launches.values()) == launches[blake3_cuda.FAST],
                     f"ring {name} depth {depth} launched {launches}")
-            for k, got in enumerate(res):
-                require(np.array_equal(got, plain[name][k]),
+            for k, want in enumerate(plain[name]):
+                require(np.array_equal(res[k], want),
                         f"ring {name} depth {depth}: batch {k} digests != plain")
             require(stats.stage_python_batches == 0 and stats.fallback_files == 0,
                     f"ring {name} depth {depth}: Python staging ran")
@@ -5839,11 +5877,17 @@ class WsClient:
             .to_bytes(n, "little") if n else b""
         self.sock.sendall(head + mask + body)
 
-    def call(self, path: str, input=None, kind: str = "query", timeout: float = 600.0):
-        """(result, width of the response frame); raises on an error frame."""
+    def call(self, path: str, input=None, kind: str = "query", timeout: float = 600.0,
+             tp: Optional[str] = None):
+        """(result, width of the response frame); raises on an error frame.
+        `tp` rides the envelope: the caller's trace, which the server's
+        rpc span continues."""
         self.next_id += 1
         mid = self.next_id
-        self.send({"id": mid, "type": kind, "path": path, "input": input})
+        frame = {"id": mid, "type": kind, "path": path, "input": input}
+        if tp is not None:
+            frame["tp"] = tp
+        self.send(frame)
         deadline = time.monotonic() + timeout
         with self.cond:
             while mid not in self.responses:
@@ -5896,6 +5940,13 @@ class HttpClient:
 
     def get(self, url: str, headers: Optional[dict] = None):
         self.conn.request("GET", url, headers=headers or {})
+        resp = self.conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+
+    def post_raw(self, url: str, input):
+        """(status, headers, body) of a POST, whatever its status."""
+        self.conn.request("POST", url, body=json.dumps(input),
+                          headers={"Content-Type": "application/json"})
         resp = self.conn.getresponse()
         return resp.status, dict(resp.getheaders()), resp.read()
 
@@ -6163,6 +6214,413 @@ def phase_api(workdir: Path, data_dir: str, counts: dict, device: str = "cuda") 
     return out
 
 
+# -- observability plane (phase 15) -------------------------------------------
+
+OBSERVE_CHILD_FILES = 2048      # (b) the profiled identify
+OBSERVE_VALIDATE_BYTES = 9 << 20  # (b) one 9 MiB file: two K2 windows and folds
+OBSERVE_MASK_DIGESTS = 2000     # (b) one mask-form compare
+OBSERVE_RING_BATCHES = 16       # (c)
+OBSERVE_RING_BATCH = 256
+# (b): each kernel's device events must sit inside its named region. A
+# form is known in the trace by its symbol, demangled or not:
+# blake3_chunk_span<WINDOWED, FUSED> serves K1 and K2.
+PROFILE_REGIONS = {
+    "blake3_chunk_fast": (("blake3_chunk_span<false, true>", "blake3_chunk_spanILb0ELb1E"),
+                          "cas_ids/cuda"),
+    "blake3_chunk_windowed": (("blake3_chunk_span<true, true>", "blake3_chunk_spanILb1ELb1E"),
+                              "seqhash.reduce"),
+    "blake3_tree_fold": (("blake3_tree_fold",), "seqhash.reduce"),
+    "hamming_near_mask": (("near_mask_kernel",), "hamming.pairs")}
+PROM_LINE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*'
+                       r'(\{(?:[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*",?)*\})?'
+                       r' (?:-?[0-9.]+(?:e[+-]?[0-9]+)?|NaN|[+-]Inf)$')
+
+
+def family_value(name: str, **labels) -> float:
+    """One counter child's value, or a histogram's observation sum."""
+    from spacedrive_tpu_torch import telemetry
+
+    fam = telemetry.REGISTRY.get(name)
+    child = fam.labels(**labels) if labels else fam
+    sample = child._sample()
+    return float(sample["sum"] if "sum" in sample else sample["value"])
+
+
+def observe_child(args: list) -> int:
+    """Phase 15 (b) and (e), in a process of their own: the profiler is
+    process-wide (SDTPU_PROFILE, set by the parent) and the sanitizer is
+    installed in raise mode (SDTPU_SANITIZE, SDTPU_SANITIZE_MODE). Prints
+    one JSON object: the trace file, the violations and what raised."""
+    from spacedrive_tpu_torch import sanitize, tracing
+    from spacedrive_tpu_torch.objects.validator import checksums_for_files
+    from spacedrive_tpu_torch.ops import hamming, kernel_registry, staging
+
+    spec = json.loads(Path(args[0]).read_text())
+    require(sanitize.install(), "the sanitizer did not install (SDTPU_SANITIZE unset)")
+    device = spec.get("device", "cuda")  # "cpu": a dry run of the plumbing
+    out = {"mode": sanitize.mode()}
+    ids, errors = staging.cas_ids_for_files([tuple(f) for f in spec["files"]],
+                                            backend="cuda" if device == "cuda" else "plain")
+    out["identify_matches"] = all(ids.get(i) == cid for i, cid in enumerate(spec["ids"]))
+    sums, failed = checksums_for_files([spec["big"]], device)
+    out["checksum"] = sums.get(0)
+    digests = np.asarray(spec["digests"], dtype=np.uint32)
+    out["pairs"] = [list(p) for p in hamming.near_dup_pairs(digests, 10, device=device)]
+    out["violations_clean"] = [v["kind"] for v in sanitize.violations()]
+    # The witness: a deliberate synchronizing call inside a device scope.
+    x = torch.ones(4, device=device)
+    try:
+        with kernel_registry.device_scope("observe.witness"):
+            x.sum().item()
+        out["witness"] = "did not raise"
+    except RuntimeError as e:
+        out["witness"] = str(e).splitlines()[0][:200]
+    out["violations"] = [v["kind"] for v in sanitize.violations()]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["trace_path"] = tracing.stop_profiler()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def profile_regions(trace: dict) -> dict:
+    """For each PROFILE_REGIONS kernel: its device events and how many lie
+    inside its region, by the launch's correlation to a CPU-side region
+    (record_function) or, where no launch was traced, inside the region's
+    device-side projection (gpu_user_annotation)."""
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    regions, gpu_regions, launches = {}, {}, {}
+    for e in events:
+        cat = e.get("cat", "")
+        span = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+        if cat in ("user_annotation", "cpu_op"):
+            regions.setdefault(e["name"], []).append(span)
+        elif cat == "gpu_user_annotation":
+            gpu_regions.setdefault(e["name"], []).append(span)
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                launches[corr] = float(e["ts"])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = {"kernel_events": len(kernels), "events": len(events), "forms": {}}
+    out["kernel_names"] = sorted({e["name"] for e in kernels})[:40]
+    for form, (symbols, region) in PROFILE_REGIONS.items():
+        mine = [e for e in kernels if any(sym in e["name"] for sym in symbols)]
+        inside = 0
+        via = set()
+        for e in mine:
+            t = launches.get((e.get("args") or {}).get("correlation"))
+            if t is not None and any(a <= t <= b for a, b in regions.get(region, [])):
+                inside += 1
+                via.add("launch")
+            elif any(a <= float(e["ts"]) <= b for a, b in gpu_regions.get(region, [])):
+                inside += 1
+                via.add("gpu_annotation")
+        out["forms"][form] = {"region": region, "device_events": len(mine),
+                              "inside": inside, "via": sorted(via),
+                              "region_seen": region in regions}
+    return out
+
+
+def prometheus_ok(text: str) -> list:
+    """Lines of a Prometheus text exposition that do not parse."""
+    bad = []
+    for line in text.splitlines():
+        if not line or line.startswith("# HELP ") or line.startswith("# TYPE "):
+            continue
+        if not PROM_LINE.match(line):
+            bad.append(line)
+    return bad
+
+
+def phase_observe(workdir: Path, phase4_ids: dict, large_files: list, counts: dict,
+                  device: str = "cuda") -> dict:
+    """Phase 15: the observability plane on the card. (a) identify cost of
+    telemetry, (b) a profiler run in a child, (c) the flight recorder on a
+    ring, (d) a node's /metrics, spans, trace export, health and an
+    incident, (e) the sync guard in raise mode (in the child of (b))."""
+    import asyncio
+    import secrets
+    import threading
+
+    from spacedrive_tpu_torch import chaos, flight, health, incidents, telemetry
+    from spacedrive_tpu_torch.api.server import ApiServer
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.ops import blake3_cuda, hamming_cuda, kernel_registry, overlap
+    from spacedrive_tpu_torch.ops import staging
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    backend = "cuda" if cuda else "plain"  # a CPU dry run takes the plain path
+
+    # (a) identify with telemetry on, then off. The hash entry writes no rows:
+    # its own families (sd_identifier_batch_files, _batches_total) are checked
+    # here, and sd_identifier_files_total, which counts the rows the
+    # identifier job links, creates or skips, is held against a job's scan in (d).
+    files = [(p, os.path.getsize(p)) for p in sorted(phase4_ids)]
+    want = [phase4_ids[p] for p, _ in files]
+    pool = staging.cas_pool(files, device) if cuda else None
+    rates = {"on": [], "off": []}
+    for on in (True, False):
+        telemetry.set_enabled(on)
+        try:
+            b0 = family_value("sd_identifier_batch_files")
+            n0 = family_value("sd_identifier_batches_total", backend=backend)
+            if cuda:
+                torch.cuda.synchronize()
+            blake3_cuda.reset_launches()
+            kernel_registry.reset_scope_counts()
+            t0 = time.perf_counter()
+            ids, _errors = staging.cas_ids_for_files(files, backend=backend, pool=pool)
+            wall = time.perf_counter() - t0
+        finally:
+            telemetry.set_enabled(True)
+        key = "on" if on else "off"
+        rates[key].append(len(files) / wall)
+        counts[f"observe_identify_{key}"] = dict(blake3_cuda.launches)
+        require([ids.get(i) for i in range(len(files))] == want,
+                f"phase 15 (a): CAS IDs with telemetry {key} != phase 4's")
+        k1 = blake3_cuda.launches[blake3_cuda.FAST]
+        scoped = kernel_registry.scope_counts().get(("cas_ids/cuda", blake3_cuda.FAST), 0)
+        require(scoped == k1 == (2 if cuda else 0),
+                f"phase 15 (a): registry counts {scoped} K1 in cas_ids/cuda, launches {k1}")
+        db = family_value("sd_identifier_batch_files") - b0
+        dn = family_value("sd_identifier_batches_total", backend=backend) - n0
+        require((db, dn) == ((len(files), 1) if on else (0, 0)),
+                f"phase 15 (a): telemetry {key} counted {db} files in {dn} batches")
+    out["identify_files_per_s"] = rates
+    out["identify_telemetry_cost"] = 1 - sum(rates["on"]) / sum(rates["off"])
+    out["part_s"] = {"a": time.perf_counter() - t_phase}
+
+    # (b) + (e) the profiler and the raise-mode guard, in a child
+    if cuda:
+        prof_dir = workdir / "observe-profile"
+        prof_dir.mkdir()
+        big = workdir / "observe-9mib.bin"
+        big.write_bytes(np.random.default_rng(15).integers(
+            0, 256, OBSERVE_VALIDATE_BYTES, dtype=np.uint8).tobytes())
+        digests, planted = make_digests(OBSERVE_MASK_DIGESTS, 20, 10, seed=15)
+        child_files = files[:OBSERVE_CHILD_FILES]
+        spec = workdir / "observe-child.json"
+        spec.write_text(json.dumps({"files": child_files, "ids": want[:OBSERVE_CHILD_FILES],
+                                    "big": str(big), "digests": digests.tolist()}))
+        env = {**os.environ, "SDTPU_PROFILE": str(prof_dir), "SDTPU_SANITIZE": "1",
+               "SDTPU_SANITIZE_MODE": "raise"}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--observe-child",
+                               str(spec)], env=env, capture_output=True, text=True,
+                              timeout=300)
+        out["profile_child_s"] = time.perf_counter() - t0
+        require(proc.returncode == 0, f"phase 15 (b): the child failed ({proc.returncode}): "
+                                      f"{proc.stderr[-2000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        require(child["identify_matches"], "phase 15 (b): the child's CAS IDs != phase 4's")
+        from spacedrive_tpu_torch.objects.validator import checksums_for_files
+
+        # phase 5 holds this path against its plain version at 64 MiB
+        here, _ = checksums_for_files([str(big)], "cuda")
+        require(child["checksum"] == here[0],
+                "phase 15 (b): the child's 9 MiB checksum != this process's")
+        want_pairs = tiled_pairs(digests, 10, 4096)
+        require([tuple(p) for p in child["pairs"]] == want_pairs,
+                "phase 15 (b): the mask compare's pairs != the plain tiles'")
+        # (e) raise mode: no violation on the three paths; the witness raised
+        require(child["mode"] == "raise" and child["violations_clean"] == [],
+                f"phase 15 (e): violations in raise mode: {child['violations_clean']}")
+        require("synchroniz" in child["witness"].lower()
+                and child["violations"] == ["host_transfer"],
+                f"phase 15 (e): the .item() witness gave {child['witness']!r}, "
+                f"violations {child['violations']}")
+        out["guard_witness"] = child["witness"]
+        path = Path(child["trace_path"] or "")
+        require(path.is_file(), f"phase 15 (b): no profiler trace ({child['trace_path']})")
+        out["trace_file_bytes"] = path.stat().st_size
+        trace = json.loads(path.read_text())
+        names = {e.get("name") for e in trace.get("traceEvents", [])}
+        regions = profile_regions(trace)
+        out["profile"] = regions
+        require({"cas_ids/cuda", "seqhash.reduce", "hamming.pairs"} <= names,
+                f"phase 15 (b): regions missing from the trace: "
+                f"{sorted({'cas_ids/cuda', 'seqhash.reduce', 'hamming.pairs'} - names)}")
+        require(regions["kernel_events"] > 0,
+                f"phase 15 (b): CUDA activity lists no kernel ({regions['events']} events): "
+                "the profiler traced no device activity (CUPTI unavailable to this process)")
+        for form, r in regions["forms"].items():
+            require(r["device_events"] > 0,
+                    f"phase 15 (b): no device event of {form} in the trace; its kernels: "
+                    f"{regions['kernel_names']}")
+            require(r["inside"] == r["device_events"],
+                    f"phase 15 (b): {r['inside']} of {form}'s {r['device_events']} device "
+                    f"events inside {r['region']}")
+
+    out["part_s"]["b_e"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
+    # (c) the flight recorder on a ring of 16 batches at depth 3
+    flight.RECORDER.clear()
+    n_ring = OBSERVE_RING_BATCHES * OBSERVE_RING_BATCH
+    ring_files = large_files[:n_ring]
+    batches = [([p for p, _ in ring_files[k:k + OBSERVE_RING_BATCH]],
+                np.array([s for _, s in ring_files[k:k + OBSERVE_RING_BATCH]], np.uint64))
+               for k in range(0, n_ring, OBSERVE_RING_BATCH)]
+    blake3_cuda.reset_launches()
+    _digs, rstats = overlap.run_overlapped(batches, depth=3, devices=[device],
+                                           calibrate_every=len(batches))
+    counts["observe_ring"] = dict(blake3_cuda.launches)
+    doc = flight.chrome_trace(node_name="chip-smoke")
+    problems = flight.validate_chrome_trace(doc)
+    require(problems == [], f"phase 15 (c): chrome trace problems {problems[:3]}")
+    windows = [e for e in flight.RECORDER.snapshot() if e["lane"] == "window"]
+    bound_by = collections.Counter(w["binding"] for w in windows)
+    require(len(windows) == len(batches) - 1,
+            f"phase 15 (c): {len(windows)} windows for {len(batches) - 1} measured batches")
+    # A kernel lane spans its batch's launch to its kernel's end: after the
+    # batch's copy, and after the kernel launched before it (one compute
+    # stream, one dispatcher). 2 us covers the rounding to whole microseconds.
+    lanes = {lane: {e["batch"]: e for e in flight.RECORDER.snapshot() if e["lane"] == lane}
+             for lane in ("h2d", "kernel")}
+    for b, k in lanes["kernel"].items():
+        h = lanes["h2d"][b]
+        require(k["ts_us"] >= h["ts_us"] + h["dur_us"] - 2,
+                f"phase 15 (c): batch {b}'s kernel lane starts inside its copy: {h} {k}")
+    in_order = sorted(lanes["kernel"].values(), key=lambda e: e["ts_us"])
+    for prev, k in zip(in_order, in_order[1:]):
+        require(k["ts_us"] >= prev["ts_us"] + prev["dur_us"] - 2,
+                f"phase 15 (c): two kernel lanes overlap: {prev} {k}")
+    out["ring"] = {"windows": len(windows), "bound_by": dict(bound_by),
+                   "files_per_s": rstats.files_per_sec,
+                   "bound_files_per_s": rstats.bound_files_per_sec}
+
+    out["part_s"]["c"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
+    # (d) a node over the API
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def on_loop(coro, timeout: float = 600.0):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    node_dir = tempfile.TemporaryDirectory(prefix="chip-smoke-observe-")
+
+    async def boot():
+        node = Node(str(Path(node_dir.name) / "node"), device=device)
+        await node.start()
+        server = ApiServer(node)
+        return node, server, await server.start("127.0.0.1", 0)
+
+    root = workdir / "observe-location"
+    made = write_api_location(root)
+    node, server, port = on_loop(boot())
+    ws = None
+    try:
+        http = HttpClient("127.0.0.1", port)
+        ws = WsClient("127.0.0.1", port)
+        lib = http.rpc("library.create", {"name": "observe"})
+        lid = lib["uuid"]
+        f0 = {o: family_value("sd_identifier_files_total", outcome=o)
+              for o in ("linked", "created", "skipped")}
+        trace_id, parent = secrets.randbits(63) | 1, secrets.randbits(63) | 1
+        tp = f"{trace_id:x}-{parent:x}"
+        if cuda:
+            torch.cuda.synchronize()
+        blake3_cuda.reset_launches()
+        hamming_cuda.reset_launches()
+        loc, _ = ws.call("locations.create", {"library_id": lid, "path": str(root),
+                                              "dry_run": True}, kind="mutation", tp=tp)
+        ws.call("locations.fullRescan", {"library_id": lid, "location_id": loc},
+                kind="mutation", tp=tp)
+        on_loop(node.jobs.wait_idle())
+        counts["observe_node"] = {**blake3_cuda.launches, **hamming_cuda.launches}
+        # a fresh keep-alive connection: the server closes one idle past
+        # its api.http.read budget, and the scan may have taken that long
+        http = HttpClient("127.0.0.1", port)
+        t0 = time.perf_counter()
+        status, headers, body = http.get("/metrics")
+        out["metrics_scrape_ms"] = (time.perf_counter() - t0) * 1e3
+        text = body.decode()
+        require(status == 200 and headers.get("Content-Type", "").startswith(
+            "text/plain; version=0.0.4"), f"phase 15 (d): GET /metrics {status}")
+        bad = prometheus_ok(text)
+        require(not bad, f"phase 15 (d): /metrics lines that do not parse: {bad[:3]}")
+        out["metrics_bytes"] = len(body)
+        [library] = [x for x in node.libraries.list() if str(x.id) == lid]
+        [ident] = [r for r in job_reports(library) if r.name == "file_identifier"]
+        identified = {"linked": ident.metadata["total_objects_linked"],
+                      "created": ident.metadata["total_objects_created"],
+                      "skipped": ident.metadata["total_skipped"]}
+        moved = {o: family_value("sd_identifier_files_total", outcome=o) - f0[o] for o in f0}
+        require(moved == {o: float(v) for o, v in identified.items()}
+                and identified["created"] > 0,
+                f"phase 15 (d): sd_identifier_files_total moved {moved}, the scan's "
+                f"identifier reports {identified}")
+        for o, v in moved.items():
+            prom = re.search(rf'^sd_identifier_files_total\{{outcome="{o}"\}} (\S+)$', text,
+                             re.M)
+            require(prom is not None and float(prom.group(1)) ==
+                    family_value("sd_identifier_files_total", outcome=o),
+                    f"phase 15 (d): /metrics sd_identifier_files_total{{{o}}}")
+        out["identified"] = identified
+
+        spans = http.rpc("node.spans", {"trace": f"{trace_id:x}", "limit": 512})
+        by_name = collections.Counter(s["span"].split("/")[0] for s in spans)
+        rpc = [s for s in spans if s["span"] == "rpc/locations.fullRescan"]
+        require(rpc and rpc[0]["parent"] == f"{parent:x}",
+                f"phase 15 (d): no rpc/locations.fullRescan span under the client's trace "
+                f"({sorted(by_name)})")
+        require(by_name["job"] >= 2 and by_name["cas_ids"] >= 1,
+                f"phase 15 (d): the scan's job and cas_ids spans are not in the client's "
+                f"trace: {dict(by_name)}")
+        out["spans_in_trace"] = dict(by_name)
+        doc = http.rpc("node.trace.export", post=False)
+        require(flight.validate_chrome_trace(doc) == [], "phase 15 (d): node.trace.export")
+        snap = http.rpc("node.health", post=False)
+        require(health.validate_health_snapshot(snap) == [],
+                f"phase 15 (d): node.health {health.validate_health_snapshot(snap)[:3]}")
+        out["health_states"] = snap.get("states")
+
+        before = {h["id"] for h in http.rpc("incidents.list", post=False)}
+        chaos.arm("store.commit=error:1.0", seed=15)
+        scale = os.environ.get("SDTPU_TIMEOUT_SCALE")
+        os.environ["SDTPU_TIMEOUT_SCALE"] = "0.05"  # the ladder's sleeps, scaled
+        try:
+            status, _h, _b = http.post_raw("/rspc/tags.create",
+                                           {"library_id": lid, "name": "observe",
+                                            "color": "#00ff00"})
+        finally:
+            chaos.disarm()
+            if scale is None:
+                os.environ.pop("SDTPU_TIMEOUT_SCALE")
+            else:
+                os.environ["SDTPU_TIMEOUT_SCALE"] = scale
+        require(status >= 400, f"phase 15 (d): a write under store.commit=error answered "
+                               f"{status}")
+        new = [h for h in http.rpc("incidents.list", post=False) if h["id"] not in before]
+        require(len(new) == 1 and new[0]["trigger"]["kind"] == "backoff.give_up"
+                and new[0]["trigger"]["resource"] == "store.busy",
+                f"phase 15 (d): incidents after the give-up: {new}")
+        require(incidents.validate_incident_header(new[0]) == [],
+                f"phase 15 (d): {incidents.validate_incident_header(new[0])[:3]}")
+        bundle = http.rpc("incidents.get", {"id": new[0]["id"]})
+        require(incidents.validate_incident_bundle(bundle) == [],
+                f"phase 15 (d): {incidents.validate_incident_bundle(bundle)[:3]}")
+        require(http.rpc("incidents.ack", {"id": new[0]["id"]}) == {"acked": True},
+                "phase 15 (d): incidents.ack")
+        out["incident"] = {"trigger": new[0]["trigger"]["kind"],
+                           "resource": new[0]["trigger"]["resource"]}
+    finally:
+        if ws is not None:
+            ws.close()
+        on_loop(server.stop())
+        on_loop(node.shutdown())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+        node_dir.cleanup()
+    out["part_s"]["d"] = time.perf_counter() - t_phase - sum(out["part_s"].values())
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit("observe", **out)
+    return out
+
+
 REPLACES = {
     "blake3_chunk_fast": "spacedrive_tpu/ops/blake3_pallas.py:121",
     "blake3_chunk_fast_cvs": "spacedrive_tpu/ops/blake3_pallas.py:121",
@@ -6238,6 +6696,8 @@ def main() -> int:
         mark("sync")
         phase_api(Path(tmp), data_dir, counts)
         mark("api")
+        phase_observe(Path(tmp), phase4_ids, large_files, counts)
+        mark("observe")
     # The near-dup corpora and their library in the system temp dir.
     with tempfile.TemporaryDirectory(prefix="chip-smoke-near-dup-") as tmp:
         near_dup = phase_near_dup_job(Path(tmp), counts)
@@ -6276,4 +6736,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--observe-child"]:  # phase 15's child (b, e)
+        sys.exit(observe_child(sys.argv[2:]))
     sys.exit(main())

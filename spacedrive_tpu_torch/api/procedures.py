@@ -25,7 +25,7 @@ from typing import Any, Dict
 
 from .. import _msgpack
 from .. import backups as backups_mod
-from .. import tasks
+from .. import tasks, telemetry, tracing
 from ..jobs.report import JobStatus
 from ..library import Library
 from ..locations import manager as loc_manager
@@ -40,19 +40,18 @@ from .serialization import row_to_dict, rows_to_dicts
 
 BUILD_VERSION = "0.1.0"
 
-_OBSERVABILITY = "ROADMAP queue A item 6 (the observability plane)"
+_OBSERVABILITY = ("ROADMAP queue A item 6, its second half (fleet.py, p2p/obs.py: "
+                  "the obs and fleet observatories)")
 _CRYPTO = "ROADMAP queue A item 5, its crypto half (crypto/, objects/crypto_ops.py)"
 _ENCODERS = "ROADMAP queue A item 11 (JPEG, GIF and TIFF encoders)"
 
 # The JAX router's procedures this router does not mount yet, each with
 # the port item it waits for. A name covers both kinds where the JAX router
-# has a query and a subscription under it (node.health, fleet.health).
+# has a query and a subscription under it (fleet.health).
 NOT_YET: Dict[str, str] = {
     **{name: _OBSERVABILITY for name in (
-        "node.metrics", "node.spans", "node.trace.export", "node.health",
-        "node.telemetry", "obs.metrics", "obs.health", "obs.trace",
-        "obs.incidents", "fleet.health", "fleet.metrics", "fleet.trace.export",
-        "incidents.list", "incidents.get", "incidents.ack", "incidents")},
+        "obs.metrics", "obs.health", "obs.trace", "obs.incidents",
+        "fleet.health", "fleet.metrics", "fleet.trace.export")},
     **{f"keys.{name}": _CRYPTO for name in (
         "isUnlocked", "isSetup", "setup", "unlock", "lock", "list", "add",
         "mount", "unmount", "delete")},
@@ -62,7 +61,7 @@ NOT_YET: Dict[str, str] = {
 }
 
 # The JAX server's routes this server does not serve yet.
-NOT_YET_ROUTES: Dict[str, str] = {"/metrics": _OBSERVABILITY}
+NOT_YET_ROUTES: Dict[str, str] = {}
 
 
 def _json_safe(v: Any) -> Any:
@@ -82,6 +81,7 @@ def _json_safe(v: Any) -> Any:
 
 def register_all(router: Router) -> None:
     _core(router)
+    _incidents(router)
     _libraries(router)
     _volumes(router)
     _tags(router)
@@ -122,6 +122,105 @@ def _core(r: Router) -> None:
     @r.mutation("toggleFeatureFlag")
     def toggle_feature(node, input):
         return node.config.toggle_feature(str(input["feature"]))
+
+    @r.query("node.metrics")
+    def node_metrics(node, _input):
+        """The node-wide telemetry registry as one JSON-safe snapshot: the
+        rspc face of GET /metrics (same counters, same instant)."""
+        return telemetry.snapshot()
+
+    @r.query("node.spans")
+    def node_spans(node, input):
+        """Recent finished spans from the tracing ring, newest last;
+        optional {limit, trace} filters."""
+        input = input or {}
+        return tracing.recent_spans(limit=int(input.get("limit", 100)),
+                                    trace_id=input.get("trace"))
+
+    @r.query("node.trace.export")
+    async def node_trace_export(node, input):
+        """The flight-recorder export: span ring + pipeline timeline as one
+        schema-valid Chrome-trace document (flight.py), built off the loop
+        (a full ring is thousands of events to copy and sort)."""
+        from .. import flight
+
+        del input
+        return await asyncio.to_thread(flight.chrome_trace, node_name=node.config.name)
+
+    @r.query("node.health")
+    def node_health(node, _input):
+        """The health observatory's latest snapshot (health.py): states by
+        subsystem with bottleneck attribution. Served from the sampler's
+        cache; computed fresh when the sampler has not run within ~2
+        intervals."""
+        return node.health.snapshot()
+
+    @r.subscription("node.health")
+    def node_health_sub(node, _input, emit):
+        """Every HealthSnapshot the sampler emits, plus one at once."""
+        def on_event(e):
+            if e.get("type") == "HealthSnapshot":
+                emit(e)
+        unsub = node.events.subscribe(on_event)
+        node.health.emit_snapshot()  # after subscribing: this client sees it
+        return unsub
+
+    @r.subscription("node.telemetry")
+    def node_telemetry(node, _input, emit):
+        """The TelemetryReporter's periodic TelemetrySnapshot events, plus
+        one at once."""
+        def on_event(e):
+            if e.get("type") == "TelemetrySnapshot":
+                emit(e)
+        unsub = node.events.subscribe(on_event)
+        node.telemetry_reporter.emit_snapshot()
+        return unsub
+
+
+# -- incidents. (incidents.py) -----------------------------------------------
+
+def _incidents(r: Router) -> None:
+    """List bundle headers, pull one bundle, acknowledge it, and stream new
+    incidents. All four degrade cleanly when SDTPU_INCIDENTS=off (an empty
+    list, NOT_FOUND, a stream of nothing)."""
+
+    def _obs(node):
+        from .. import incidents
+
+        return getattr(node, "incidents", None) or incidents.current()
+
+    @r.query("incidents.list")
+    def incidents_list(node, input):
+        """Bundle headers newest first, optional {limit}."""
+        obs = _obs(node)
+        if obs is None:
+            return []
+        return obs.list(limit=int((input or {}).get("limit", 0)))
+
+    @r.query("incidents.get")
+    def incidents_get(node, input):
+        """One whole evidence bundle by {id} (read from disk)."""
+        obs = _obs(node)
+        bundle = obs.get(str((input or {}).get("id", ""))) if obs is not None else None
+        if bundle is None:
+            raise RpcError("NOT_FOUND", "no such incident bundle")
+        return bundle
+
+    @r.mutation("incidents.ack")
+    def incidents_ack(node, input):
+        """Mark a bundle triaged: {id} → {acked: bool}."""
+        obs = _obs(node)
+        acked = obs.ack(str((input or {}).get("id", ""))) if obs is not None else False
+        return {"acked": acked}
+
+    @r.subscription("incidents")
+    def incidents_sub(node, _input, emit):
+        """Each Incident event (the new bundle's header) as the observatory
+        freezes it; incidents.list is the paint-in query."""
+        def on_event(e):
+            if e.get("type") == "Incident":
+                emit(e)
+        return node.events.subscribe(on_event)
 
 
 # -- library. (api/libraries.rs) -------------------------------------------

@@ -25,8 +25,13 @@ Wire protocol (JSON frames over the WebSocket):
   ← {"id": 2, "type": "event", "data": ...}   (repeatedly)
   → {"id": 2, "type": "subscriptionStop"}
 
-``/metrics``, the RPC spans and the chaos points wait for the
-observability plane (``procedures.NOT_YET_ROUTES``).
+Observability, as in the JAX server: ``GET /metrics`` serves the
+registry's Prometheus text; every rspc query or mutation runs in an
+``rpc/<path>`` span that continues the caller's trace (the
+``X-Sdtpu-Trace`` header over HTTP, the envelope's ``tp`` field over the
+WebSocket); requests count into ``sd_api_requests_total{route}`` by route
+template; and the ``api.http.dispatch`` and ``api.ws.send`` chaos points
+fire at their seams.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import time
 import uuid as uuidlib
 from typing import Any, AsyncIterator, Dict, Optional
 
-from .. import channels, tasks
+from .. import channels, chaos, tasks, telemetry, tracing
 from ..locations.paths import IsolatedPath
 from ..media.thumbnail import thumbnail_path
 from ._http import (HttpError, HttpServer, Request, Response, Upgrade, WebSocket, is_upgrade,
@@ -61,7 +66,7 @@ class WsSubscriptionPump:
 
     def __init__(self, send, owner: str):
         self._send = send
-        self.chan = channels.CoalescingChannel("api.ws")
+        self.chan = channels.channel("api.ws")
         self._task = tasks.spawn("ws-pump", self._drain(), owner=owner)
 
     def offer(self, payload: dict) -> bool:
@@ -73,7 +78,14 @@ class WsSubscriptionPump:
 
     async def _drain(self) -> None:
         while True:
-            await self._send(await self.chan.get())
+            payload = await self.chan.get()
+            # Chaos seam: delay = a slow consumer, wedge = a dead one (the
+            # channel sheds while the drainer is parked; teardown cancels
+            # this task), drop = a lost frame.
+            f = chaos.hit("api.ws.send", only=("delay", "drop", "wedge"))
+            if f is not None and await chaos.apply_async(f):
+                continue  # dropped
+            await self._send(payload)
 
     async def stop(self) -> None:
         self._task.cancel()
@@ -171,7 +183,8 @@ class ApiServer:
         # Admission window for rspc HTTP dispatch: a request past the
         # capacity is refused with 503 SHED instead of queueing unbounded
         # behind a saturated backend; `http_inflight_cap` narrows it.
-        self._inflight = channels.AdmissionWindow(http_inflight_cap)
+        self._inflight = channels.channel(
+            "api.http.inflight", capacity_cap=http_inflight_cap)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -185,30 +198,60 @@ class ApiServer:
     # -- routing -----------------------------------------------------------
 
     async def _route(self, req: Request):
+        """Dispatch by route, counting each request under its route
+        template (unmatched paths share one label)."""
+        route, handler = self._match(req)
+        telemetry.API_REQUESTS.labels(route=route).inc()
+        if handler is None:
+            raise HttpError(404)
+        return await handler()
+
+    def _match(self, req: Request):
+        """(route template, handler thunk or None) of a request: the JAX
+        server's aiohttp route table, matched by hand."""
         path = req.path
         if req.method in ("GET", "HEAD"):
             if path == "/":
-                return await self._index()
+                return "/", self._index
             if path == "/health":
-                return text_response("OK")
+                return "/health", lambda: self._text("OK")
+            if path == "/metrics":
+                return "/metrics", self._metrics
             if path == "/manifest.webmanifest":
-                return self._manifest()
+                return "/manifest.webmanifest", self._manifest_async
             if path == "/rspc" and req.method == "GET":
-                if not is_upgrade(req):
-                    raise HttpError(400)
-                return Upgrade(self._rspc_ws)
+                return "/rspc", lambda: self._upgrade(req)
             parts = path.split("/")
             if len(parts) == 3 and parts[1] == "static" and parts[2]:
-                return await self._static(parts[2])
+                return "/static/{name}", lambda: self._static(parts[2])
             if len(parts) == 4 and parts[1:3] == ["spacedrive", "thumbnail"] \
                     and parts[3].endswith(".webp") and len(parts[3]) > len(".webp"):
-                return await self._thumbnail(req, parts[3][:-len(".webp")])
+                return ("/spacedrive/thumbnail/{cas_id}.webp",
+                        lambda: self._thumbnail(req, parts[3][:-len(".webp")]))
             if len(parts) == 6 and parts[1:3] == ["spacedrive", "file"] and all(parts[3:]):
-                return await self._file(req, *parts[3:])
+                return ("/spacedrive/file/{library_id}/{location_id}/{file_path_id}",
+                        lambda: self._file(req, *parts[3:]))
         if req.method in ("GET", "POST") and path.startswith("/rspc/") \
                 and "/" not in path[len("/rspc/"):] and len(path) > len("/rspc/"):
-            return await self._rspc_http(req, path[len("/rspc/"):])
-        raise HttpError(404)
+            return "/rspc/{path}", lambda: self._rspc_http(req, path[len("/rspc/"):])
+        return "unmatched", None
+
+    async def _text(self, text: str) -> Response:
+        return text_response(text)
+
+    async def _manifest_async(self) -> Response:
+        return self._manifest()
+
+    async def _upgrade(self, req: Request):
+        if not is_upgrade(req):
+            raise HttpError(400)
+        return Upgrade(self._rspc_ws)
+
+    async def _metrics(self) -> Response:
+        """Prometheus text exposition of the node-wide registry (scrape
+        this; the web UI gets the same data as TelemetrySnapshot events)."""
+        return Response(200, telemetry.render_prometheus().encode("utf-8"),
+                        {"Content-Type": telemetry.PROMETHEUS_CONTENT_TYPE})
 
     # -- handlers ----------------------------------------------------------
 
@@ -247,7 +290,7 @@ class ApiServer:
         }, content_type="application/manifest+json")
 
     async def _rspc_http(self, req: Request, path: str) -> Response:
-        if not self._inflight.try_acquire():
+        if not self._inflight.put_nowait(1):
             # Refused before the body read: a shed request costs no
             # backend work.
             return json_response(
@@ -271,7 +314,22 @@ class ApiServer:
             else:
                 raw = req.query.get("input")
                 input = json.loads(raw) if raw else None
-            result = await self.router.dispatch(path, input)
+            # Chaos seam (inside the admission window): delay = a slow
+            # backend, error = a failing one, reported as 503 so clients
+            # exercise their retry discipline.
+            f = chaos.hit("api.http.dispatch", only=("delay", "error"))
+            if f is not None:
+                try:
+                    await chaos.apply_async(f)
+                except chaos.ChaosError as e:
+                    return json_response(
+                        {"error": {"code": "UNAVAILABLE", "message": str(e)}}, status=503)
+            # A client propagates its trace in X-Sdtpu-Trace; the dispatch
+            # span continues it, so an API-triggered job shows up under
+            # the caller's id.
+            with tracing.continue_trace(req.headers.get("X-Sdtpu-Trace")), \
+                    tracing.span(f"rpc/{path}"):
+                result = await self.router.dispatch(path, input)
             return json_response({"result": result})
         except RpcError as e:
             return json_response(
@@ -279,7 +337,7 @@ class ApiServer:
                 status=400 if e.code == "BAD_REQUEST" else 404
                 if e.code == "NOT_FOUND" else 500)
         finally:
-            self._inflight.release()
+            self._inflight.get_nowait()
 
     async def _rspc_ws(self, ws: WebSocket) -> None:
         subscriptions: Dict[Any, Any] = {}
@@ -299,7 +357,11 @@ class ApiServer:
             try:
                 if mtype in ("query", "mutation"):
                     try:
-                        result = await self.router.dispatch(msg["path"], msg.get("input"))
+                        # The envelope's optional "tp" field is the
+                        # WebSocket spelling of X-Sdtpu-Trace.
+                        with tracing.continue_trace(msg.get("tp")), \
+                                tracing.span(f"rpc/{msg['path']}"):
+                            result = await self.router.dispatch(msg["path"], msg.get("input"))
                     except asyncio.TimeoutError as e:
                         # A budget fired inside the procedure: the socket is
                         # fine, so report it.

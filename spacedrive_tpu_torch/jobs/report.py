@@ -14,6 +14,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 from .. import _msgpack
+from ..telemetry import (JOBS_COMPLETED, JOBS_ITEMS_PER_SEC, JOBS_ITEMS_PROCESSED,
+                         JOB_DURATION_SECONDS)
 
 # Record separator for the errors_text column: tracebacks hold blank lines.
 _ERR_SEP = "\n\x1e\n"
@@ -45,6 +47,20 @@ class JobReport:
     date_started: Optional[int] = None
     date_completed: Optional[int] = None
     date_estimated_completion: Optional[int] = None
+
+    def record_metrics(self, duration_s: Optional[float] = None) -> None:
+        """Publish this report's terminal facts to the node registry:
+        completion counters by status, run duration, items processed and
+        the derived items/s of the finished run. Called once a worker run
+        (paused runs count too: their status label says so)."""
+        JOBS_COMPLETED.labels(status=self.status.name.lower()).inc()
+        if duration_s is not None and duration_s >= 0:
+            JOB_DURATION_SECONDS.labels(name=self.name).observe(duration_s)
+            if self.completed_task_count and duration_s > 0:
+                JOBS_ITEMS_PER_SEC.labels(name=self.name).set(
+                    self.completed_task_count / duration_s)
+        if self.completed_task_count:
+            JOBS_ITEMS_PROCESSED.labels(name=self.name).inc(self.completed_task_count)
 
     def create(self, db) -> None:
         self.date_created = int(time.time())

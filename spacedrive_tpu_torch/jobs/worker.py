@@ -26,6 +26,9 @@ import traceback
 from collections import deque
 from typing import Any, Callable, Deque, List, Optional
 
+from ..telemetry import JOBS_EARLY_FINISH, JOBS_STEP_ERRORS, JOB_STEP_SECONDS
+from ..tracing import current_trace_id
+from ..tracing import span as trace_span
 from .job import EarlyFinish, JobContext, JobError, JobState, StatefulJob, StepOutcome
 from .report import JobReport, JobStatus
 
@@ -93,22 +96,44 @@ class Worker:
             })
 
     async def run(self) -> JobStatus:
-        try:
-            status = await self._run_inner()
-        except asyncio.CancelledError:
-            status = await self._persist_paused_or_fail("worker task cancelled")
-        except Exception as e:  # noqa: BLE001 (a job-level failure)
-            await self._cleanup_quietly(None)
-            self.report.status = JobStatus.FAILED
-            self.report.errors_text.append("".join(traceback.format_exception(e)).strip())
-            self.report.date_completed = int(time.time())
-            self.report.data = None
-            await asyncio.to_thread(self.report.update, self.library.db)
-        else:
-            self.report.status = status
+        # Root span of this run's trace: every job.step span (and any span
+        # opened inside step bodies: contextvars survive asyncio.to_thread)
+        # nests under it.
+        with trace_span(f"job/{self.report.name}", job_id=self.report.id.hex()):
+            # The run's trace id in the persisted report: an operator jumps
+            # from a job row to its spans (node.spans {trace}) and its
+            # flight-recorder timeline (node.trace.export).
+            self.report.metadata["trace"] = current_trace_id()
+            try:
+                status = await self._run_inner()
+            except asyncio.CancelledError:
+                status = await self._persist_paused_or_fail("worker task cancelled")
+            except Exception as e:  # noqa: BLE001 (a job-level failure)
+                await self._cleanup_quietly(None)
+                self.report.status = JobStatus.FAILED
+                self.report.errors_text.append("".join(traceback.format_exception(e)).strip())
+                self.report.date_completed = int(time.time())
+                self.report.data = None
+                await asyncio.to_thread(self.report.update, self.library.db)
+            else:
+                self.report.status = status
+        self.report.record_metrics(
+            duration_s=(time.monotonic() - self._started_at) if self._started_at else None)
         self.on_event({"type": "JobUpdate", "id": self.report.id.hex(),
                        "name": self.report.name, "status": int(self.report.status)})
         return self.report.status
+
+    async def _spanned_step(self, ctx: JobContext, state: JobState):
+        """One step under a child span of the job's root trace, plus the
+        per-step latency histogram."""
+        t0 = time.perf_counter()
+        try:
+            with trace_span("job.step", job=self.report.name, step=state.step_number):
+                return await self.job.execute_step(ctx, state.data, state.steps[0],
+                                                   state.step_number)
+        finally:
+            JOB_STEP_SECONDS.labels(name=self.report.name).observe(
+                time.perf_counter() - t0)
 
     async def _run_inner(self) -> JobStatus:
         r = self.report
@@ -130,6 +155,7 @@ class Worker:
             try:
                 data, steps = await self.job.init(ctx)
             except EarlyFinish:
+                JOBS_EARLY_FINISH.inc()
                 r.status = JobStatus.COMPLETED
                 r.data = None  # clear the at-ingest state blob
                 r.date_completed = int(time.time())
@@ -149,17 +175,18 @@ class Worker:
             if cmd in (WorkerCommand.PAUSE, WorkerCommand.SHUTDOWN):
                 return await self._persist_paused(ctx, state, errors)
             try:
-                outcome = await self.job.execute_step(ctx, state.data, state.steps[0],
-                                                      state.step_number)
+                outcome = await self._spanned_step(ctx, state)
             except JobError:
                 raise
             except Exception as e:  # noqa: BLE001 (a non-fatal step error)
+                JOBS_STEP_ERRORS.inc()
                 errors.append(f"step {state.step_number}: "
                               + "".join(traceback.format_exception(e)).strip())
                 outcome = None
             if isinstance(outcome, StepOutcome):
                 state.steps.extend(outcome.more_steps)
                 r.task_count += len(outcome.more_steps)
+                JOBS_STEP_ERRORS.inc(len(outcome.errors))
                 errors.extend(outcome.errors)
                 state.run_metadata.update(outcome.metadata)
             state.steps.popleft()

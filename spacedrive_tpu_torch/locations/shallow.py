@@ -18,7 +18,8 @@ from typing import Optional
 
 from ..objects.identifier import (BACKENDS, CHUNK_SIZE, TxBatch, identify_chunk,
                                   orphan_filters, stage_file_list)
-from ..ops import staging
+from ..ops import kernel_registry, staging
+from ..telemetry import IDENT_FILES
 from ..ops.blake3_torch import resolve_device
 from .file_path_helper import load_location
 from .indexer_job import (_entry_to_row, make_db_fetchers, remove_file_path_rows,
@@ -77,7 +78,8 @@ def light_scan_location(library, location_id: int, sub_path: Optional[str] = Non
         if not page:
             break
         files = stage_file_list(page, location_id, location_path)
-        ids, read_errors = staging.cas_ids_for_files(files, backend=backend)
+        with kernel_registry.device_scope("identify.hash"):
+            ids, read_errors = staging.cas_ids_for_files(files, backend=backend)
         # One write_tx per page: the cursor pages over committed rows.
         batch = TxBatch()
         with db.write_tx() as conn:
@@ -85,6 +87,10 @@ def light_scan_location(library, location_id: int, sub_path: Optional[str] = Non
                                           conn, batch)
         if batch.n_ops:
             library.sync._notify_created()
+        # A standalone identify counts here (the job counts in its step).
+        for outcome, n in (("linked", lk), ("created", cr), ("skipped", len(errs))):
+            if n:
+                IDENT_FILES.labels(outcome=outcome).inc(n)
         linked += lk
         created += cr
         errors.extend(errs)

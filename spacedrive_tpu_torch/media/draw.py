@@ -217,7 +217,6 @@ def _fill_edges(canvas: np.ndarray, edges: List[_Edge], ink) -> None:
     ymax = min(ymax, height)
     for y in range(ymin, ymax + 1):
         xx = []
-        joined = set()
         for i, cur in enumerate(table):
             if not cur.ymin <= y <= cur.ymax:
                 continue
@@ -226,42 +225,35 @@ def _fill_edges(canvas: np.ndarray, edges: List[_Edge], ink) -> None:
             if y == cur.ymax and y < ymax:
                 # Needed to draw consistent polygons
                 xx.append(x)
-            elif cur.dx != 0 and _roundf(x) == x:
-                _corner(table, i, y, ymax, xx, joined)
+            elif cur.dx != 0 and y in (cur.ymin, cur.ymax):
+                _corner(table, i, y, xx)
         xx.sort()
         for i in range(1, len(xx), 2):
             hline(canvas, _round_up_f(xx[i - 1]), y, _round_down_f(xx[i]), ink)
 
 
-def _corner(table, i: int, y: int, ymax: int, xx: list, joined: set) -> None:
-    """Connect discontiguous corners: where this row's crossing of edge i is
-    a whole number, the first other edge of the same slope sign that starts
-    (or ends) on this row as edge i does, and crosses it at the same rounded
-    x, makes a corner with it, whether it comes before or after edge i.
-    Where that edge goes on to the next row (the previous row on the last),
-    the crossing moves next to where the two edges cross that row, if it
-    lies more than a pixel past both. A corner is joined once a row: its
-    second edge keeps its crossing (`joined` holds the pairs)."""
+def _corner(table, i: int, y: int, xx: list) -> None:
+    """Connect discontiguous corners: edge i starts on this row (or ends on
+    the last one). The first earlier edge that starts or ends on this row
+    too and crosses it at the same rounded x makes a corner with it, if it
+    goes on to the next row (the previous row where edge i ends). Then the
+    crossing moves next to where the two edges cross that row, if it lies
+    more than a pixel past both."""
     cur = table[i]
-    for k, other in enumerate(table):
-        if k == i or (cur.dx > 0 and other.dx <= 0) or (cur.dx < 0 and other.dx >= 0):
+    offset = -1 if y == cur.ymax else 1
+    x = xx[-1]
+    for other in table[:i]:
+        if (y != other.ymin and y != other.ymax) or other.dx == 0:
             continue
-        if not (y == cur.ymin == other.ymin or y == cur.ymax == other.ymax):
+        if _roundf(x) != _roundf(other.at(y)):
             continue
-        if _roundf(xx[-1]) != _roundf(other.at(y)):
+        if not other.ymin <= y + offset <= other.ymax:
             continue
-        if frozenset((i, k)) in joined:
-            return
-        offset = -1 if y == ymax else 1
-        if other.ymin <= y + offset <= other.ymax:
-            a, b = cur.at(y + offset), other.at(y + offset)
-            x = xx[-1]
-            if x > a + 1 and x > b + 1:
-                xx[-1] = _roundf(max(a, b)) + 1
-                joined.add(frozenset((i, k)))
-            elif x < a - 1 and x < b - 1:
-                xx[-1] = _roundf(min(a, b)) - 1
-                joined.add(frozenset((i, k)))
+        a, b = cur.at(y + offset), other.at(y + offset)
+        if x > a + 1 and x > b + 1:
+            xx[-1] = _roundf(max(a, b)) + 1
+        elif x < a - 1 and x < b - 1:
+            xx[-1] = _roundf(min(a, b)) - 1
         return
 
 
@@ -534,7 +526,8 @@ def pieslice(canvas: np.ndarray, xy, start: float, end: float, ink) -> None:
     """``ImageDraw.pieslice(xy, start, end, fill=ink)``: the box truncated
     to ints, the angles as C floats, the filled ellipse's spans clipped by
     the two sides' half-planes (pie_init: their intersection under 180°,
-    else their union)."""
+    else their union; under 90° also the half-plane facing the sum of the
+    sides' two points on the ellipse)."""
     (fx0, fy0), (fx1, fy1) = xy
     if fx1 < fx0 or fy1 < fy0:
         raise ValueError("x1 must be greater than or equal to x0")
@@ -549,10 +542,13 @@ def pieslice(canvas: np.ndarray, xy, start: float, end: float, ink) -> None:
     elif al == ar:
         return
     else:
-        rad = lambda v: float(F32(v) / F32(180)) * math.pi
+        rad = lambda v: float(v) * math.pi / 180.0
         xl, yl = a * math.cos(rad(al)), b * math.sin(rad(al))
         xr, yr = a * math.cos(rad(ar)), b * math.sin(rad(ar))
         tree = ("and" if ar - al < 180 else "or", ("clip", -yl, xl, 0.0), ("clip", yr, -xr, 0.0))
+        if ar - al < 90:
+            # and the half-plane on the side of the sum of the two points
+            tree = ("and", tree, ("clip", (xl + xr) * 0.5, (yl + yr) * 0.5, 0.0))
         spans = ((s, tree) for s in _ellipse_spans(a, b, a + b))
     for (sx0, sy, sx1), node in spans:
         ends = _clip(node, sx0, sy, sx1) if node is not None else [(sx0, 1), (sx1, -1)]

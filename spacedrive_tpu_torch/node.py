@@ -14,9 +14,16 @@ node.
 The node hashes on the card: ``device="cuda"`` is the default and raises
 at once where CUDA is absent; ``device="cpu"`` (the tests) runs the plain
 backends. ``node.backend`` is the scan backend that goes with it and
-``jobs.services["device"]`` the device. The JAX node's observatories
-(health, fleet, incidents, the telemetry reporter) and its sanitizer wait
-for the observability plane.
+``jobs.services["device"]`` the device.
+
+The observability plane rides the node as in the JAX package: the
+sanitizer (``sanitize.install(mode="count")``: a no-op unless
+``SDTPU_SANITIZE`` is set), JSON logging (``SDTPU_LOG_JSON``) and the log
+ring, the ``TelemetryReporter`` (periodic ``TelemetrySnapshot`` events),
+the health observatory (``self.health``, sampled under
+``<node>/health``) and the process-global incident observatory
+(``self.incidents``, bundles under ``<data_dir>/incidents/``). The fleet
+observatory waits for the plane's second half.
 """
 
 from __future__ import annotations
@@ -24,10 +31,12 @@ from __future__ import annotations
 import asyncio
 import json
 import os
+import time
 import uuid as uuidlib
 from typing import Callable, Dict, List, Optional
 
-from . import persist, tasks
+from . import flags, persist, tasks, telemetry, tracing
+from .health import HealthMonitor
 from .jobs.manager import JobManager
 from .library import Libraries, Library
 from .locations.watcher import Locations
@@ -156,12 +165,56 @@ class OrphanRemover:
             self._task = None
 
 
+class TelemetryReporter:
+    """Periodic TelemetrySnapshot events on the node event bus: the push
+    view of the metrics registry, the same snapshot ``node.metrics``
+    serves on demand. Interval from SDTPU_TELEMETRY_INTERVAL seconds
+    (floor 0.05); the loop emits nothing while telemetry is disabled."""
+
+    def __init__(self, events: EventBus, interval_s: Optional[float] = None,
+                 owner: str = "telemetry-reporter"):
+        self.events = events
+        if interval_s is None:
+            interval_s = flags.get("SDTPU_TELEMETRY_INTERVAL")
+        self.interval_s = max(0.05, interval_s)
+        self._owner = owner
+        self._task: Optional[asyncio.Task] = None
+
+    def emit_snapshot(self) -> None:
+        self.events.emit({"type": "TelemetrySnapshot", "ts": time.time(),
+                          "metrics": telemetry.snapshot()})
+
+    def start(self) -> None:
+        async def loop():
+            while True:
+                await asyncio.sleep(self.interval_s)
+                if telemetry.enabled():
+                    self.emit_snapshot()
+        if self._task is None:
+            self._task = tasks.spawn("telemetry-reporter", loop(), owner=self._owner)
+
+    def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()
+            self._task = None
+
+
 class Node:
     def __init__(self, data_dir: str, device: str = "cuda"):
         if device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
         if device == "cuda":
             resolve_device("cuda")  # raises here where CUDA is absent
+        # SDTPU_SANITIZE=1 arms the sanitizer in count mode: violations
+        # count into sd_sanitize_* instead of raising (a no-op when unset).
+        from . import sanitize
+
+        sanitize.install(mode="count")
+        # SDTPU_LOG_JSON: trace-correlated structured logging; the log
+        # ring (SDTPU_LOG_RING, on by default) keeps a trace-stamped tail
+        # for incident bundles. One handler each a process.
+        tracing.install_json_logging()
+        tracing.install_log_ring()
         self.data_dir = os.path.abspath(data_dir)
         os.makedirs(self.data_dir, exist_ok=True)
         self.device = device
@@ -181,6 +234,24 @@ class Node:
         self.orphan_removers: Dict[uuidlib.UUID, OrphanRemover] = {}
         self.locations = Locations(self)
         self.p2p = None  # created by start_p2p
+        self.telemetry_reporter = TelemetryReporter(
+            self.events, owner=f"{self.task_owner}/reporter")
+        # Health observatory: delta-samples every metric family into
+        # bounded rings and attributes saturation; serves node.health and
+        # the sd_health_state{subsystem} gauges.
+        self.health = HealthMonitor(
+            self.events, owner=f"{self.task_owner}/health",
+            node_id=self.config.id.hex(), node_name=self.config.name)
+        # Incident observatory: process-global and idempotent (the first
+        # node wins, as the sanitizer); a prior crash's partial bundle is
+        # recovered here, before any trigger can fire. None when
+        # SDTPU_INCIDENTS is off.
+        from . import incidents
+
+        self.incidents = incidents.install(
+            dir_path=os.path.join(self.data_dir, "incidents"),
+            monitor=self.health, events=self.events,
+            node_id=self.config.id.hex(), node_name=self.config.name)
         self.libraries.on_event(self._on_library_event)
 
     # -- lifecycle (ordering-sensitive: lib.rs:134-138) --------------------
@@ -189,6 +260,11 @@ class Node:
         """Load the libraries, apply the data dir's ``init.json`` seed,
         cold-resume the interrupted jobs, start the actors."""
         self.thumbnailer.start()
+        try:
+            self.telemetry_reporter.start()
+            self.health.start()
+        except RuntimeError:
+            pass  # no running loop; node.metrics and on-demand health work
         self.libraries.init()
         # Before cold_resume, so reset_on_startup never deletes a library
         # whose jobs were just re-dispatched; a bad seed file is reported,
@@ -239,6 +315,8 @@ class Node:
         """Stop jobs and actors, then reap the node's task subtree before
         the library databases close, so cancelled work can still write."""
         await self.jobs.shutdown()
+        self.telemetry_reporter.stop()
+        self.health.stop()
         await self.locations.close()
         await self.thumbnailer.stop()
         if self.p2p is not None:

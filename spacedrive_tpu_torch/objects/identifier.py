@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextvars
 import os
 import threading
 import time
@@ -52,7 +53,8 @@ from ..files import resolve_kind
 from ..jobs.job import EarlyFinish, JobContext, StatefulJob, StepOutcome, register_job
 from ..locations.file_path_helper import (load_location, materialized_like,
                                           sub_path_children_mat)
-from ..ops import staging
+from ..ops import kernel_registry, staging
+from ..telemetry import IDENT_FILES, IDENT_PHASE_SECONDS
 from ..ops.blake3_torch import resolve_device
 from ..sync.crdt import OpKind, uuid4_bytes_batch
 
@@ -329,11 +331,15 @@ class FileIdentifierJob(StatefulJob):
         thread enters the job's device and stream, stages into the job's
         pool, and every lease is back when the call returns."""
         if self.backend != "cuda":
-            out = staging.cas_ids_for_files(files, backend=self.backend)
+            with kernel_registry.device_scope("identify.hash"):
+                out = staging.cas_ids_for_files(files, backend=self.backend)
             with self._count_lock:
                 self._pages_hashed += 1
             return out
-        with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
+        # The bucketed identify hash runs inside the sanitizer's device
+        # scope, as in the JAX package (contract cas.ids).
+        with torch.cuda.device(self._device), torch.cuda.stream(self._stream), \
+                kernel_registry.device_scope("identify.hash"):
             out = staging.cas_ids_for_files(files, backend="cuda", pool=self._pool)
         with self._count_lock:
             self._pages_hashed += 1
@@ -383,7 +389,9 @@ class FileIdentifierJob(StatefulJob):
         if self._executor is None:
             self._executor = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="identify-ahead")
-        return self._executor.submit(fn, *args)
+        # The worker runs in the step's context: its spans (cas_ids/cuda)
+        # stay in the job's trace.
+        return self._executor.submit(contextvars.copy_context().run, fn, *args)
 
     def _take_page(self, ctx: JobContext, data: Dict[str, Any], cursor: int,
                    timings: Dict[str, float]):
@@ -429,6 +437,7 @@ class FileIdentifierJob(StatefulJob):
     def _step(self, ctx: JobContext, data: Dict[str, Any]) -> StepOutcome:
         tf = time.perf_counter()
         timings = data.setdefault("phase_s", {})
+        phase_before = dict(timings)
         self._ensure_pool(data)
         # Phase 1: the page, outside any transaction. A page the worker did
         # not hash (job start, or the redo of a failed step) is hashed here
@@ -465,6 +474,16 @@ class FileIdentifierJob(StatefulJob):
         data["cursor"] = cursor
         self._fold_counts(data)
         timings["step_total"] = timings.get("step_total", 0.0) + time.perf_counter() - tf
+        for phase, total in timings.items():
+            delta = total - phase_before.get(phase, 0.0)
+            if delta > 0:
+                IDENT_PHASE_SECONDS.labels(phase=phase).inc(delta)
+        if linked:
+            IDENT_FILES.labels(outcome="linked").inc(linked)
+        if created:
+            IDENT_FILES.labels(outcome="created").inc(created)
+        if errors:
+            IDENT_FILES.labels(outcome="skipped").inc(len(errors))
         data["linked"] += linked
         data["created"] += created
         data["skipped"] += len(errors)

@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, kernel_registry
 from . import blake3_batch as bb
 
 FAST = "blake3_chunk_fast"
@@ -99,6 +99,7 @@ def _run(name: str, device: torch.device, fn, *args) -> None:
             f"{name} launch failed: CUDA error {rc} "
             f"({lib.sd_cuda_error_string(rc).decode()})")
     launches[name] += 1
+    kernel_registry.note_launch(name)
 
 
 def _counter_args(counter_base, whole, B: int, device: torch.device):

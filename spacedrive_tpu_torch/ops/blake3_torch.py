@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from . import blake3_batch as bb
-from . import blake3_cuda, cas
+from . import blake3_cuda, cas, kernel_registry
 
 # Canonical chunk-grid sizes for the two CAS modes.
 LARGE_MSG_LEN = cas.SIZE_PREFIX_LEN + cas.LARGE_PAYLOAD_SIZE  # 57352
@@ -134,5 +134,10 @@ def checksums_words_batched(blobs, device="cuda") -> list:
     C = max(1, -(-max(maxlen, 1) // bb.CHUNK_LEN))
     C = 1 << (C - 1).bit_length()
     words, lengths = bb.pack_messages(blobs, max_chunks=C)
-    digests = blake3_words(words, lengths, device)
-    return bb.digests_to_hex(digests_to_numpy(digests))
+    w, n = words_to_device(words, lengths, device)
+    # Guarded dispatch (contract cas.checksums): the hex digests' fetch is
+    # the declared io; the grid's copy to the device happened above.
+    with kernel_registry.device_scope("cas.checksums"):
+        digests = blake3_cuda.blake3_words(w, n)
+        with kernel_registry.io("cas.checksums"):
+            return bb.digests_to_hex(digests_to_numpy(digests))

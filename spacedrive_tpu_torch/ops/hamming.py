@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import hamming_cuda
+from . import hamming_cuda, kernel_registry
 from .blake3_torch import resolve_device
 
 
@@ -80,8 +80,12 @@ def near_dup_pairs(
     N = digests.shape[0]
     if N <= tile:
         d = _words(digests, dev)
-        mask = hamming_cuda.hamming_near_mask(d, d, threshold)
-        ii, jj = (t.cpu() for t in torch.nonzero(mask, as_tuple=True))
+        # Guarded compare (contract hamming.pairs): the digests' copy to
+        # the device precedes it, the pair indexes are the declared fetch.
+        with kernel_registry.device_scope("hamming.pairs"):
+            mask = hamming_cuda.hamming_near_mask(d, d, threshold)
+            with kernel_registry.io("hamming.pairs"):
+                ii, jj = (t.cpu() for t in torch.nonzero(mask, as_tuple=True))
         return list(zip(ii.tolist(), jj.tolist()))
     return near_dup_pairs_device(digests, threshold, tile=tile, stats=stats, device=dev)
 
@@ -250,87 +254,97 @@ def near_dup_pairs_device(digests: np.ndarray, threshold: int,
     words = _words(padded, dev)
     lap("planes")
 
-    def counts(blocks: np.ndarray, size: int, g: int) -> torch.Tensor:
-        """[F, g, g] counts, on `dev`, of blocks with origins `blocks`
-        (units of size)."""
-        outs = [hamming_cuda.hamming_near_counts(
-            words, blocks[f0:f0 + BLOCKS_PER_DISPATCH].astype(np.int64) * size, size, g,
-            threshold, N) for f0 in range(0, len(blocks), BLOCKS_PER_DISPATCH)]
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
+    # Guarded pyramid (contract hamming.pairs): the padded digests' copy
+    # to the device precedes it; per-tile sums and nonzero indexes are
+    # the declared fetches.
+    with kernel_registry.device_scope("hamming.pairs"):
+        def counts(blocks: np.ndarray, size: int, g: int) -> torch.Tensor:
+            """[F, g, g] counts, on `dev`, of blocks with origins `blocks`
+            (units of size)."""
+            outs = [hamming_cuda.hamming_near_counts(
+                words, blocks[f0:f0 + BLOCKS_PER_DISPATCH].astype(np.int64) * size, size, g,
+                threshold, N) for f0 in range(0, len(blocks), BLOCKS_PER_DISPATCH)]
+            return outs[0] if len(outs) == 1 else torch.cat(outs)
 
-    def nonzero(t: torch.Tensor) -> np.ndarray:
-        """Indices of t's nonzero entries, row-major (np.nonzero's order),
-        found where t lies: only they cross to the host."""
-        return torch.nonzero(t).cpu().numpy().T
+        def nonzero(t: torch.Tensor) -> np.ndarray:
+            """Indices of t's nonzero entries, row-major (np.nonzero's order),
+            found where t lies: only they cross to the host."""
+            with kernel_registry.io("hamming.pairs"):
+                return torch.nonzero(t).cpu().numpy().T
 
-    # The sweep: tile pairs j ≥ i in row-major order (a tile below the
-    # diagonal holds no i < j pair), at sub-block granularity. Each
-    # dispatch keeps only the sub-counts of its tiles that hold a pair;
-    # only the per-tile sums cross to the host.
-    g0 = REFINE_SUB if tile > REFINE_SUB else 1
-    iu, ju = np.triu_indices(NT)
-    tile_pairs = np.stack([iu, ju], axis=1)
-    sums, live = [], []
-    for f0 in range(0, len(tile_pairs), BLOCKS_PER_DISPATCH):
-        sub = hamming_cuda.hamming_near_counts(
-            words, tile_pairs[f0:f0 + BLOCKS_PER_DISPATCH].astype(np.int64) * tile, tile,
-            g0, threshold, N)
-        total = sub.sum(dim=(1, 2), dtype=torch.int32)
-        sums.append(total)
-        live.append(sub[torch.nonzero(total).flatten()])
-    grid = np.zeros((NT, NT), dtype=np.int32)
-    grid[iu, ju] = torch.cat(sums).cpu().numpy()
-    live = torch.cat(live)
-    lap("counts")
+        # The sweep: tile pairs j ≥ i in row-major order (a tile below the
+        # diagonal holds no i < j pair), at sub-block granularity. Each
+        # dispatch keeps only the sub-counts of its tiles that hold a pair;
+        # only the per-tile sums cross to the host.
+        g0 = REFINE_SUB if tile > REFINE_SUB else 1
+        iu, ju = np.triu_indices(NT)
+        tile_pairs = np.stack([iu, ju], axis=1)
+        sums, live = [], []
+        for f0 in range(0, len(tile_pairs), BLOCKS_PER_DISPATCH):
+            sub = hamming_cuda.hamming_near_counts(
+                words, tile_pairs[f0:f0 + BLOCKS_PER_DISPATCH].astype(np.int64) * tile, tile,
+                g0, threshold, N)
+            total = sub.sum(dim=(1, 2), dtype=torch.int32)
+            sums.append(total)
+            with kernel_registry.io("hamming.pairs"):
+                live.append(sub[torch.nonzero(total).flatten()])
+        grid = np.zeros((NT, NT), dtype=np.int32)
+        with kernel_registry.io("hamming.pairs"):
+            grid[iu, ju] = torch.cat(sums).cpu().numpy()
+        live = torch.cat(live)
+        lap("counts")
 
-    # The JAX package's pair budget, on the same per-tile counts in the
-    # same order: it keeps and drops the same tiles. argwhere's row-major
-    # order is the sweep's, so row k of `live` is the k-th nonzero tile.
-    coords = np.argwhere(grid > 0).astype(np.int32)
-    if len(coords) == 0:
-        return []
-    rows = np.arange(len(coords))
-    tile_totals = grid[coords[:, 0], coords[:, 1]]
-    if int(tile_totals.sum()) > MAX_TOTAL_PAIRS:
-        # Keep sparsest tiles first until the pair budget is spent.
-        order = np.argsort(tile_totals)
-        keep = np.cumsum(tile_totals[order]) <= MAX_TOTAL_PAIRS
-        dropped = int(tile_totals.sum() - tile_totals[order][keep].sum())
-        warnings.warn(
-            f"near_dup_pairs_device: truncating ~{dropped} pairs in "
-            "degenerate near-identical clusters (MAX_TOTAL_PAIRS "
-            f"= {MAX_TOTAL_PAIRS})", RuntimeWarning)
-        if stats is not None:
-            stats["truncated_pairs"] = (
-                stats.get("truncated_pairs", 0) + dropped)
-        coords, rows = coords[order][keep], order[keep]
+        # The JAX package's pair budget, on the same per-tile counts in the
+        # same order: it keeps and drops the same tiles. argwhere's row-major
+        # order is the sweep's, so row k of `live` is the k-th nonzero tile.
+        coords = np.argwhere(grid > 0).astype(np.int32)
         if len(coords) == 0:
             return []
+        rows = np.arange(len(coords))
+        tile_totals = grid[coords[:, 0], coords[:, 1]]
+        if int(tile_totals.sum()) > MAX_TOTAL_PAIRS:
+            # Keep sparsest tiles first until the pair budget is spent.
+            order = np.argsort(tile_totals)
+            keep = np.cumsum(tile_totals[order]) <= MAX_TOTAL_PAIRS
+            dropped = int(tile_totals.sum() - tile_totals[order][keep].sum())
+            warnings.warn(
+                f"near_dup_pairs_device: truncating ~{dropped} pairs in "
+                "degenerate near-identical clusters (MAX_TOTAL_PAIRS "
+                f"= {MAX_TOTAL_PAIRS})", RuntimeWarning)
+            if stats is not None:
+                stats["truncated_pairs"] = (
+                    stats.get("truncated_pairs", 0) + dropped)
+            coords, rows = coords[order][keep], order[keep]
+            if len(coords) == 0:
+                return []
 
-    def subdivide(coords: np.ndarray, sub_counts: torch.Tensor, g: int) -> np.ndarray:
-        """Origins (units of size / g) of the nonzero sub-blocks."""
-        f, a, b = nonzero(sub_counts)
-        return np.stack([coords[f, 0] * g + a, coords[f, 1] * g + b],
-                        axis=1).astype(np.int32)
+        def subdivide(coords: np.ndarray, sub_counts: torch.Tensor, g: int) -> np.ndarray:
+            """Origins (units of size / g) of the nonzero sub-blocks."""
+            f, a, b = nonzero(sub_counts)
+            return np.stack([coords[f, 0] * g + a, coords[f, 1] * g + b],
+                            axis=1).astype(np.int32)
 
-    # The kept tiles' sub-block counts come from the sweep; each level
-    # below keeps only sub-blocks whose count is nonzero.
-    size = tile
-    if g0 > 1:
-        coords = subdivide(coords, live[torch.from_numpy(rows).to(dev)], g0)
-        size //= g0
-    while size > REFINE_SUB:
-        coords = subdivide(coords, counts(coords, size, REFINE_SUB), REFINE_SUB)
-        lap(f"refine_{size}")
-        size //= REFINE_SUB
-        if len(coords) == 0:
-            return []
+        # The kept tiles' sub-block counts come from the sweep; each level
+        # below keeps only sub-blocks whose count is nonzero.
+        size = tile
+        if g0 > 1:
+            rows_t = torch.from_numpy(rows)
+            if dev.type == "cuda":  # no synchronizing copy in the guarded scope
+                rows_t = rows_t.pin_memory().to(dev, non_blocking=True)
+            coords = subdivide(coords, live[rows_t], g0)
+            size //= g0
+        while size > REFINE_SUB:
+            coords = subdivide(coords, counts(coords, size, REFINE_SUB), REFINE_SUB)
+            lap(f"refine_{size}")
+            size //= REFINE_SUB
+            if len(coords) == 0:
+                return []
 
-    f, ii, jj = nonzero(counts(coords, size, size))  # 0/1: the pair masks
-    lap("leaves")
-    pi = coords[f, 0].astype(np.int64) * size + ii
-    pj = coords[f, 1].astype(np.int64) * size + jj
-    order = np.lexsort((pj, pi))
-    out = [(int(a), int(b)) for a, b in zip(pi[order], pj[order])]
-    lap("host")
-    return out
+        f, ii, jj = nonzero(counts(coords, size, size))  # 0/1: the pair masks
+        lap("leaves")
+        pi = coords[f, 0].astype(np.int64) * size + ii
+        pj = coords[f, 1].astype(np.int64) * size + jj
+        order = np.lexsort((pj, pi))
+        out = [(int(a), int(b)) for a, b in zip(pi[order], pj[order])]
+        lap("host")
+        return out

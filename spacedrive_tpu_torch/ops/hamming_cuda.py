@@ -34,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, kernel_registry
 
 NEAR_MASK = "hamming_near_mask"
 NEAR_COUNTS = "hamming_near_counts"
@@ -180,6 +180,7 @@ def hamming_near_mask(x: torch.Tensor, y: torch.Tensor, threshold: int, oi: int 
             _n_valid(n, m, oi, oj, n_valid), out.data_ptr(), stream)
     _raise_on(rc, lib, NEAR_MASK)
     launches[NEAR_MASK] += 1
+    kernel_registry.note_launch(NEAR_MASK)
     return out
 
 
@@ -205,11 +206,14 @@ def hamming_near_counts(words: torch.Tensor, origins, size: int, g: int, thresho
     words = words.contiguous()
     lib = _build.library("hamming")
     with torch.cuda.device(words.device):
-        o = o.to(words.device)
+        # Pinned and non-blocking: no synchronizing copy inside a
+        # guarded device scope (ops/kernel_registry.py).
+        o = o.pin_memory().to(words.device, non_blocking=True)
         stream = torch.cuda.current_stream(words.device).cuda_stream
         rc = lib.sd_hamming_near_counts(
             words.data_ptr(), words.shape[0], words.shape[1], o.data_ptr(), len(o), size, g,
             int(threshold), int(n_valid), out.data_ptr(), stream)
     _raise_on(rc, lib, NEAR_COUNTS)
     launches[NEAR_COUNTS] += 1
+    kernel_registry.note_launch(NEAR_COUNTS)
     return out

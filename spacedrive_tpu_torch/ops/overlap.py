@@ -48,10 +48,28 @@ calibration stages on all the stagers' threads at once and the bound takes
 that time as is (on the H100 host the C plane's rate did not grow with
 more concurrent stagers, PERF.md).
 
-Left out of this slice: the telemetry families, channel registry and
-flight-recorder lanes (they wait for the port's registry twins), the flag
-table (depth, devices and the simulated link are arguments), and the
-mesh-derived device ring (queue A7: multi-GPU).
+Observability, as in the JAX package: the whole run executes inside a
+``pipeline.run`` span, and every measured batch's stage, h2d, kernel and
+retire phases land in the flight recorder (``flight.RECORDER``) stamped
+with that span's trace id; the retire closes the batch's window, whose
+``binding`` names which of stage, h2d and kernel bound it. On a CUDA
+device the h2d and kernel lanes come from the batch's CUDA events
+(``h2d_start`` → ``copied`` on the copy stream, ``kernel_start`` →
+``kernel_end`` around the launch on the compute stream), read in the
+retirer once ``done`` has completed and placed by their elapsed time
+from ``h2d_start``, which is anchored to the host clock at the moment it
+was recorded: the h2d lane's length is the same copy time ``h2d_s``
+sums, and the kernel lane leaves out the batch's wait behind earlier
+kernels on the compute stream. The hand-offs take their capacity from the declared
+``ops.pipeline.staged`` / ``ops.pipeline.inflight`` channels (capped at
+the depth), and the ``sd_pipeline_*`` families count what the stats
+report. The kernel launch runs inside the ``overlap.kernel`` device
+scope and the calibration's digest fetch in the declared
+``overlap.retire`` io (ops/kernel_registry.py).
+
+Left out of this slice: the flag table (depth, devices and the simulated
+link are arguments) and the mesh-derived device ring (queue A7:
+multi-GPU).
 """
 
 from __future__ import annotations
@@ -68,7 +86,12 @@ import numpy as np
 import torch
 
 from . import blake3_batch as bb
-from . import blake3_cuda, blake3_torch, cas, staging
+from . import blake3_cuda, blake3_torch, cas, kernel_registry, staging
+from .. import channels, tracing
+from ..flight import RECORDER, new_run_token
+from ..telemetry import (PIPELINE_DEPTH_HIGH_WATER, PIPELINE_DEVICE_BATCHES,
+                         PIPELINE_H2D_BYTES, PIPELINE_H2D_SECONDS,
+                         PIPELINE_RETIRE_STALL_SECONDS, PIPELINE_STAGE_STALL_SECONDS)
 
 # Deepest ring a run may ask for (the JAX package's declared channel cap).
 MAX_PIPELINE_DEPTH = 8
@@ -220,8 +243,17 @@ class _InFlight:
     label: str
     h2d_start: Optional[torch.cuda.Event] = None
     copied: Optional[torch.cuda.Event] = None
+    # Recorded on the compute stream around the launch: the kernel lane is
+    # the kernel alone, not its wait behind earlier batches on the stream.
+    kernel_start: Optional[torch.cuda.Event] = None
+    kernel_end: Optional[torch.cuda.Event] = None
     done: Optional[torch.cuda.Event] = None
     h2d_host_s: float = 0.0          # host-side copy time (CPU) + simulated link
+    # Host perf_counter when h2d_start was recorded (the lanes' anchor),
+    # and on a CPU device the host-timed kernel, from the anchor.
+    t_anchor: float = 0.0
+    kernel_from_s: float = 0.0
+    kernel_host_s: float = 0.0
 
 
 class _Ring:
@@ -249,6 +281,10 @@ class _Ring:
                         else (None, None) for d in devs]
         self.abort = threading.Event()
         self.error: Optional[BaseException] = None
+        # The flight recorder's stamps: the enclosing pipeline.run span's
+        # trace and this run's token (set by run_overlapped).
+        self.trace: Optional[str] = None
+        self.run_token: Optional[int] = None
 
     # -- the three stages -------------------------------------------------
 
@@ -277,17 +313,23 @@ class _Ring:
         nbytes = words.numel() * 4 + lengths.numel() * 4
         rec = _InFlight(i, staged.lease, None, str(d))
         if not self.cuda:
-            t0 = time.perf_counter()
+            t0 = rec.t_anchor = time.perf_counter()
             w, n = blake3_torch.words_to_device(words, lengths, dev)
             self._sim_link(nbytes)
             rec.h2d_host_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
             rec.digests = self.kernel(w, n)
+            rec.kernel_host_s = time.perf_counter() - t1
+            rec.kernel_from_s = t1 - t0
         else:
             with torch.cuda.device(dev):
                 rec.h2d_start = torch.cuda.Event(enable_timing=True)
                 rec.copied = torch.cuda.Event(enable_timing=True)
-                rec.done = torch.cuda.Event()
+                rec.kernel_start = torch.cuda.Event(enable_timing=True)
+                rec.kernel_end = torch.cuda.Event(enable_timing=True)
+                rec.done = torch.cuda.Event(enable_timing=True)
                 rec.h2d_start.record(copy)
+                rec.t_anchor = time.perf_counter()
                 w, n = blake3_torch.words_to_device(words, lengths, dev, stream=copy,
                                                     non_blocking=True)
                 rec.copied.record(copy)
@@ -299,29 +341,48 @@ class _Ring:
                 # may serve another copy only after the kernel read them.
                 w.record_stream(compute)
                 n.record_stream(compute)
-                with torch.cuda.stream(compute):
+                with torch.cuda.stream(compute), \
+                        kernel_registry.device_scope("overlap.kernel"):
+                    rec.kernel_start.record(compute)
                     out = self.kernel(w, n)
+                    rec.kernel_end.record(compute)
                     rec.digests = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
                     rec.digests.copy_(out, non_blocking=True)
                     rec.done.record(compute)
         with self.stats._lock:
             self.stats.kernel_batches += 1
             self.stats.h2d_bytes += nbytes
+        PIPELINE_H2D_BYTES.inc(nbytes)
         return rec
 
     def retire(self, rec: _InFlight) -> np.ndarray:
-        """Wait for a batch's digests, return its page, give its digests."""
-        h2d_s = rec.h2d_host_s
+        """Wait for a batch's digests, return its page, give its digests;
+        record the batch's h2d, kernel and retire lanes (which closes its
+        window in the flight recorder)."""
+        t0r = time.perf_counter()
+        h2d_s, kernel_from_s, kernel_s = rec.h2d_host_s, rec.kernel_from_s, rec.kernel_host_s
         try:
             if rec.done is not None:
                 rec.done.synchronize()
                 rec.copied.synchronize()  # the page's copy has completed
                 h2d_s += rec.h2d_start.elapsed_time(rec.copied) / 1e3
+                kernel_from_s = rec.h2d_start.elapsed_time(rec.kernel_start) / 1e3
+                kernel_s = rec.kernel_start.elapsed_time(rec.kernel_end) / 1e3
         finally:
             rec.lease.release()
         with self.stats._lock:
             self.stats.h2d_s += h2d_s
-        return bb.tensor_to_words(rec.digests).copy()
+        PIPELINE_H2D_SECONDS.inc(h2d_s)
+        with kernel_registry.io("overlap.retire"):
+            digests = bb.tensor_to_words(rec.digests).copy()
+        t_kernel = rec.t_anchor + kernel_from_s
+        RECORDER.record("h2d", batch=rec.index, t0=rec.t_anchor, t1=rec.t_anchor + h2d_s,
+                        device=rec.label, trace=self.trace, run=self.run_token)
+        RECORDER.record("kernel", batch=rec.index, t0=t_kernel, t1=t_kernel + kernel_s,
+                        device=rec.label, trace=self.trace, run=self.run_token)
+        RECORDER.record("retire", batch=rec.index, t0=t0r, t1=time.perf_counter(),
+                        trace=self.trace, run=self.run_token)
+        return digests
 
     def _sim_link(self, nbytes: int) -> None:
         if self.sim:
@@ -348,8 +409,11 @@ class _Ring:
             self._sim_link(words.numel() * 4 + lengths.numel() * 4)
             t_h2d = time.perf_counter() - t0
             t0 = time.perf_counter()
-            with torch.cuda.stream(compute) if self.cuda else nullcontext():
-                digests = blake3_torch.digests_to_numpy(self.kernel(w, n))
+            with torch.cuda.stream(compute) if self.cuda else nullcontext(), \
+                    kernel_registry.device_scope("overlap.kernel"):
+                out = self.kernel(w, n)
+                with kernel_registry.io("overlap.retire"):
+                    digests = blake3_torch.digests_to_numpy(out)
             t_kernel = time.perf_counter() - t0
         finally:
             if self.cuda:
@@ -393,8 +457,10 @@ class _Ring:
         stats = self.stats
         n_stagers = self.n_stagers
         milestones = list(range(calibrate_every + 1, n - 1, calibrate_every))
-        staged_q: queue.Queue = queue.Queue(maxsize=self.depth)
-        retire_q: queue.Queue = queue.Queue(maxsize=self.depth)
+        staged_q: queue.Queue = queue.Queue(
+            maxsize=min(self.depth, channels.capacity("ops.pipeline.staged")))
+        retire_q: queue.Queue = queue.Queue(
+            maxsize=min(self.depth, channels.capacity("ops.pipeline.inflight")))
         tickets = threading.Semaphore(self.depth)
         cond = threading.Condition()
         state = {"next": 1, "in_flight": 0, "retired": 0,
@@ -418,7 +484,12 @@ class _Ring:
                     with stats._lock:
                         stats.depth_high_water = max(stats.depth_high_water,
                                                      state["in_flight"])
+                    if stats.depth_high_water > PIPELINE_DEPTH_HIGH_WATER.value:
+                        PIPELINE_DEPTH_HIGH_WATER.set(stats.depth_high_water)
+                t0 = time.perf_counter()
                 staged = self.stage(i, self.n_threads)
+                RECORDER.record("stage", batch=i, t0=t0, t1=time.perf_counter(),
+                                trace=self.trace, run=self.run_token)
                 try:
                     self._put(staged_q, (i, staged))
                 except _Aborted:
@@ -435,6 +506,7 @@ class _Ring:
                 wait = max(0.0, time.perf_counter() - t0 - (state["pause_s"] - p0))
                 with stats._lock:
                     stats.stage_s += wait
+                PIPELINE_STAGE_STALL_SECONDS.inc(wait)
                 if item is _DONE:
                     return
                 i, staged = item
@@ -448,6 +520,7 @@ class _Ring:
                 with stats._lock:
                     stats.per_device_batches[rec.label] = \
                         stats.per_device_batches.get(rec.label, 0) + 1
+                PIPELINE_DEVICE_BATCHES.labels(device=rec.label).inc()
                 try:
                     self._put(retire_q, rec)
                 except _Aborted:
@@ -458,8 +531,10 @@ class _Ring:
             while state["retired"] < n - 1:
                 t0 = time.perf_counter()
                 rec = self._get(retire_q)
+                wait = time.perf_counter() - t0
                 with stats._lock:
-                    stats.retire_stall_s += time.perf_counter() - t0
+                    stats.retire_stall_s += wait
+                PIPELINE_RETIRE_STALL_SECONDS.inc(wait)
                 results[rec.index] = self.retire(rec)
                 tickets.release()
                 with cond:
@@ -575,7 +650,17 @@ def run_overlapped(
     Returns ([per-batch [B, 8] uint32 digests], stats), row-aligned with
     each batch's paths. Batch 0 runs as the warm-up and calibration batch;
     the measured wall covers batches 1.. and excludes the calibrations.
+
+    The whole run executes inside a ``pipeline.run`` span, and every
+    measured batch lands in the flight recorder stamped with its trace id.
     """
+    with tracing.span("pipeline.run", batches=len(batches)):
+        return _run_overlapped(batches, kernel, calibrate_every, depth=depth,
+                               devices=devices, sim_link_gbps=sim_link_gbps)
+
+
+def _run_overlapped(batches, kernel, calibrate_every, *, depth, devices,
+                    sim_link_gbps):
     _check_batches(batches)
     if not devices:
         raise ValueError("run_overlapped needs at least one device")
@@ -592,6 +677,7 @@ def run_overlapped(
                           n_stagers=n_stagers, n_threads=n_threads)
     ring = _Ring(batches, kernel or blake3_cuda.blake3_words, devs, depth,
                  sim_link_gbps, n_threads, stats)
+    ring.trace, ring.run_token = tracing.current_trace_id(), new_run_token()
     if calibrate_every is None:
         calibrate_every = max(2, (len(batches) - 1) // 3)
 

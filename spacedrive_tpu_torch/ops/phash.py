@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..media.imgdecode import GRID_EDGE, image_to_grid
+from . import kernel_registry
 from .blake3_torch import resolve_device
 
 HASH_EDGE = 8            # 8×8 low-frequency block → 64 bits
@@ -61,12 +62,17 @@ def _bits_to_words(bits: np.ndarray) -> np.ndarray:
 _DCT_ON: Dict[torch.device, torch.Tensor] = {}  # _DCT32 in float64 per device
 
 
-def phash_bits(grids: torch.Tensor) -> torch.Tensor:
-    """[B, 32, 32] float32 grids → [B, 63] bool AC bits on their device."""
-    dct = _DCT_ON.get(grids.device)
+def _dct(device: torch.device) -> torch.Tensor:
+    dct = _DCT_ON.get(device)
     if dct is None:
         dct = _DCT_ON.setdefault(
-            grids.device, torch.from_numpy(_DCT32.astype(np.float64)).to(grids.device))
+            device, torch.from_numpy(_DCT32.astype(np.float64)).to(device))
+    return dct
+
+
+def phash_bits(grids: torch.Tensor) -> torch.Tensor:
+    """[B, 32, 32] float32 grids → [B, 63] bool AC bits on their device."""
+    dct = _dct(grids.device)
     coeffs = torch.matmul(torch.matmul(dct, grids.to(torch.float64)), dct.T)
     low = coeffs[:, :HASH_EDGE, :HASH_EDGE].reshape(grids.shape[0], HASH_EDGE * HASH_EDGE)
     ac = low[:, 1:]
@@ -83,7 +89,14 @@ def phash_torch(grids: np.ndarray, device="cuda") -> np.ndarray:
     if g.dim() != 3 or tuple(g.shape[1:]) != (INPUT_EDGE, INPUT_EDGE):
         raise ValueError(f"grids must be [B, {INPUT_EDGE}, {INPUT_EDGE}], got "
                          f"{tuple(g.shape)}")
-    return _bits_to_words(phash_bits(g).cpu().numpy())
+    _dct(dev)  # its one copy to the device precedes the guarded region
+    # Guarded dispatch (contract phash.batch): the bit fetch is the
+    # declared io; the grids' copy to the device happened above.
+    with kernel_registry.device_scope("phash.batch"):
+        bits = phash_bits(g)
+        with kernel_registry.io("phash.batch"):
+            bits = bits.cpu().numpy()
+    return _bits_to_words(bits)
 
 
 def phash_files(paths: Sequence[str], device="cuda",

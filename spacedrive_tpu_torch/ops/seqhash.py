@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import blake3_batch as bb
-from . import blake3_cuda
+from . import blake3_cuda, kernel_registry
 from .blake3_ref import BLOCK_LEN, IV, PARENT, ROOT, compress
 from .blake3_torch import resolve_device
 
@@ -87,8 +87,12 @@ class StreamingChecksum:
         """Reduce one window to its 8-word subtree-top CV."""
         words, length = self._window_words(data, self._window_chunks)
         base = self._windows_done * self._window_chunks
-        top = blake3_cuda.window_top(words, length, base)
-        return [int(w) for w in bb.tensor_to_words(top)]
+        # Guarded reduce (contract seqhash.reduce): the window's copy to
+        # the device precedes it, its 8-word top is the declared fetch.
+        with kernel_registry.device_scope("seqhash.reduce"):
+            top = blake3_cuda.window_top(words, length, base)
+            with kernel_registry.io("seqhash.window"):
+                return [int(w) for w in bb.tensor_to_words(top)]
 
     def _push_window_cv(self, cv: list) -> None:
         self._windows_done += 1
@@ -107,8 +111,10 @@ class StreamingChecksum:
             # The whole stream fits one window: one whole message.
             chunks = max(1, -(-len(tail) // bb.CHUNK_LEN))
             words, length = self._window_words(tail, chunks)
-            return bb.tensor_to_words(
-                blake3_cuda.blake3_words(words, length))[0].astype("<u4").tobytes()
+            with kernel_registry.device_scope("seqhash.reduce"):
+                digest = blake3_cuda.blake3_words(words, length)
+                with kernel_registry.io("seqhash.window"):
+                    return bb.tensor_to_words(digest)[0].astype("<u4").tobytes()
         cv = self._window_top(tail)
         # Finalize: fold the stack right-to-left; ROOT on the last parent.
         for i, left in enumerate(reversed(self._stack)):

@@ -48,6 +48,7 @@ Left out of this slice, each for a reason:
 from __future__ import annotations
 
 import concurrent.futures
+import itertools
 import os
 import threading
 import time
@@ -58,8 +59,13 @@ import numpy as np
 import torch
 
 from . import blake3_batch as bb
-from . import blake3_cuda, blake3_torch, cas
-from .. import native
+from . import blake3_cuda, blake3_torch, cas, kernel_registry
+from .. import chaos, native, tracing
+from ..flight import RECORDER
+from ..telemetry import (IDENT_BATCHES, IDENT_BATCH_FILES, IDENT_BYTES_HASHED,
+                         IDENT_READ_ERRORS)
+
+_CHUNK_SEQ = itertools.count(1).__next__
 
 
 def default_threads() -> int:
@@ -381,6 +387,17 @@ def stage_batch_native(
         msg_lens, status = native.stage_batch(
             [p for p, _ in files], sizes, lease.arr, payload_cap,
             n_threads=n_threads or default_threads())
+        if chaos.armed_point("stage.native.read"):
+            f = chaos.hit("stage.native.read", only=("delay",))
+            if f is not None:
+                chaos.apply_sync(f)
+            # Per-row draws: a probability storm speckles the batch (the
+            # per-file ladder's degradation), not all or nothing.
+            for r in range(n):
+                f = chaos.hit("stage.native.read", only=("error", "corrupt"))
+                if f is not None:
+                    status[r] = (native.ERR_IO if f.kind == "error"
+                                 else native.ERR_SHORT_READ)
         errors: Dict[int, str] = {}
         empty_rows: List[int] = []
         fallback = 0
@@ -462,29 +479,51 @@ def _cas_ids_packed(files, device: torch.device, pool: Optional[StagePool]):
     launched = []  # (file indexes, staged batch, [B, 8] digests on device)
     ids: Dict[int, Optional[str]] = {}
     errors: Dict[int, str] = {}
+    drained = False
+    chunk, trace = _CHUNK_SEQ(), tracing.current_trace_id()
+    stage_s, t0 = 0.0, time.perf_counter()
     try:
-        for idx in (large_idx, small_idx):
-            if not idx:
-                continue
-            staged = stage_batch_native([files[i] for i in idx], pool)
-            launched.append((idx, staged, None))
-            w, n = blake3_torch.words_to_device(
-                *staged.tensors(), device, non_blocking=device.type == "cuda")
-            launched[-1] = (idx, staged, blake3_cuda.blake3_words(w, n))
-        for idx, staged, digests in launched:
-            hexes = bb.digests_to_cas_ids(blake3_torch.digests_to_numpy(digests))
-            for row, i in enumerate(idx):
-                if row in staged.errors:
-                    errors[i] = staged.errors[row]
-                else:
-                    ids[i] = hexes[row]
+        # Guarded dispatch (contract cas.ids): the staging copies are
+        # pinned and non-blocking; the digests' fetch is the declared io.
+        with kernel_registry.device_scope(f"cas_ids/{device.type}"):
+            for idx in (large_idx, small_idx):
+                if not idx:
+                    continue
+                ts = time.perf_counter()
+                staged = stage_batch_native([files[i] for i in idx], pool)
+                stage_s += time.perf_counter() - ts
+                launched.append((idx, staged, None))
+                w, n = blake3_torch.words_to_device(
+                    *staged.tensors(), device, non_blocking=device.type == "cuda")
+                launched[-1] = (idx, staged, blake3_cuda.blake3_words(w, n))
+            with kernel_registry.io("cas.ids"):
+                for idx, staged, digests in launched:
+                    hexes = bb.digests_to_cas_ids(blake3_torch.digests_to_numpy(digests))
+                    for row, i in enumerate(idx):
+                        if row in staged.errors:
+                            errors[i] = staged.errors[row]
+                        else:
+                            ids[i] = hexes[row]
+                if device.type == "cuda":
+                    # Every copy ran on the current stream: once it is
+                    # drained, no copy reads a page and the pages may return.
+                    torch.cuda.current_stream(device).synchronize()
+                    drained = True
     finally:
-        if device.type == "cuda":
-            # Every copy ran on the current stream: once it is drained, no
-            # copy reads a page and the pages may return.
-            torch.cuda.current_stream(device).synchronize()
+        if device.type == "cuda" and not drained:
+            with kernel_registry.io("cas.ids"):
+                torch.cuda.current_stream(device).synchronize()
         for _, staged, _ in launched:
             staged.release()
+    # The step's lanes as the JAX package's host-plane chunks record them
+    # (scope "identify"): the C plane's staging, then copies, K1 and the
+    # fetch, which interleave with the second class's staging.
+    t1 = t0 + stage_s
+    RECORDER.record("stage", batch=chunk, t0=t0, t1=t1, device=device.type,
+                    scope="identify", trace=trace, files=len(files))
+    RECORDER.record("kernel", batch=chunk, t0=t1, t1=time.perf_counter(),
+                    device=device.type, scope="identify", trace=trace,
+                    files=len(files))
     for idx in empty_idx:
         ids[idx] = None  # no CAS ID for empty files (mod.rs:86)
     return ids, errors
@@ -503,18 +542,33 @@ def cas_ids_for_files(
     """
     if backend == "cuda":
         # Fails before reading any file when there is no CUDA.
-        return _cas_ids_packed(files, blake3_torch.resolve_device("cuda"), pool)
-    if backend not in _BACKENDS:
+        device = blake3_torch.resolve_device("cuda")
+    elif backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of "
                          f"{sorted([*_BACKENDS, 'cuda'])}")
-    hasher = _BACKENDS[backend]
-    large, small, empty_idx, errors = stage_files(files)
-    ids: Dict[int, Optional[str]] = {}
-    for batch in (large, small):
-        if batch.indexes:
-            ids.update(zip(batch.indexes, hasher(batch)))
-    for idx in empty_idx:
-        ids[idx] = None  # no CAS ID for empty files (mod.rs:86)
-    for idx in errors:
-        ids.pop(idx, None)  # a failed read's row hashed as zeros
+    IDENT_BATCHES.labels(backend=backend).inc()
+    IDENT_BATCH_FILES.observe(len(files))
+    # Payload-byte accounting (what the hashers consume): one pass over
+    # the size list, ~ns a file against a ms-a-file pipeline.
+    IDENT_BYTES_HASHED.inc(sum(
+        cas.LARGE_PAYLOAD_SIZE if s > cas.MINIMUM_FILE_SIZE else s
+        for _, s in files))
+    # Staging belongs inside the span on every backend, so span timings
+    # stay comparable across backends.
+    with tracing.device_span(f"cas_ids/{backend}", batch=len(files)):
+        if backend == "cuda":
+            ids, errors = _cas_ids_packed(files, device, pool)
+        else:
+            hasher = _BACKENDS[backend]
+            large, small, empty_idx, errors = stage_files(files)
+            ids = {}
+            for batch in (large, small):
+                if batch.indexes:
+                    ids.update(zip(batch.indexes, hasher(batch)))
+            for idx in empty_idx:
+                ids[idx] = None  # no CAS ID for empty files (mod.rs:86)
+            for idx in errors:
+                ids.pop(idx, None)  # a failed read's row hashed as zeros
+    if errors:
+        IDENT_READ_ERRORS.inc(len(errors))
     return ids, errors

@@ -21,6 +21,7 @@ import time
 import uuid as uuidlib
 from typing import Callable, Dict, Optional
 
+from .. import chaos, tracing
 from ..timeouts import deadline, with_timeout
 from . import wire
 from .discovery import Discovery
@@ -93,6 +94,12 @@ class P2PManager:
     async def open_stream(self, addr: str, port: int,
                           expected: Optional[RemoteIdentity] = None) -> Tunnel:
         async with deadline("p2p.connect"):
+            # Chaos seam: error = an unreachable peer (the announce loop's
+            # declared backoff path); wedge parks the dial until this
+            # deadline frees it.
+            f = chaos.hit("p2p.tunnel.open", only=("delay", "error", "wedge"))
+            if f is not None:
+                await chaos.apply_async(f)
             reader, writer = await asyncio.open_connection(addr, port)
             try:
                 return await tunnel_handshake(reader, writer, self.identity,
@@ -103,13 +110,14 @@ class P2PManager:
 
     async def ping(self, addr: str, port: int) -> float:
         t0 = time.monotonic()
-        tunnel = await self.open_stream(addr, port)
-        try:
-            async with deadline("p2p.ping"):
-                await tunnel.send(wire.pack("p2p.ping"))
-                wire.unpack("p2p.pong", await tunnel.recv())
-        finally:
-            tunnel.close()
+        with tracing.span("p2p/ping", peer=f"{addr}:{port}"):
+            tunnel = await self.open_stream(addr, port)
+            try:
+                async with deadline("p2p.ping"):
+                    await tunnel.send(wire.pack("p2p.ping", tp=tracing.traceparent()))
+                    wire.unpack("p2p.pong", await tunnel.recv())
+            finally:
+                tunnel.close()
         return time.monotonic() - t0
 
     def _progress_emitter(self, drop_id: str, total: int, direction: str):
@@ -130,6 +138,12 @@ class P2PManager:
     async def spacedrop(self, addr: str, port: int, file_path: str,
                         on_progress=None) -> str:
         """Send a file to a peer: 'sent', 'rejected' or 'cancelled'."""
+        with tracing.span("p2p/spacedrop", peer=f"{addr}:{port}",
+                          bytes=os.path.getsize(file_path)):
+            return await self._spacedrop(addr, port, file_path, on_progress)
+
+    async def _spacedrop(self, addr: str, port: int, file_path: str,
+                         on_progress=None) -> str:
         size = os.path.getsize(file_path)
         req = SpaceblockRequest(os.path.basename(file_path), size)
         drop_id = uuidlib.uuid4().hex
@@ -137,7 +151,8 @@ class P2PManager:
         tunnel = await self.open_stream(addr, port)
         try:
             await with_timeout("p2p.frame_send", tunnel.send(
-                wire.pack("p2p.spacedrop.offer", req=req.to_wire())))
+                wire.pack("p2p.spacedrop.offer", req=req.to_wire(),
+                          tp=tracing.traceparent())))
             try:
                 verdict = wire.unpack("p2p.spacedrop.verdict", await with_timeout(
                     "p2p.spacedrop.verdict", tunnel.recv()))
@@ -159,12 +174,20 @@ class P2PManager:
                            out_path: str, range_start: Optional[int] = None,
                            range_end: Optional[int] = None) -> bool:
         """Fetch a file from a remote node's library by synced pub_ids."""
+        with tracing.span("p2p/file", peer=f"{addr}:{port}"):
+            return await self._request_file(addr, port, library_id, location_pub_id,
+                                            file_path_pub_id, out_path, range_start,
+                                            range_end)
+
+    async def _request_file(self, addr, port, library_id, location_pub_id,
+                            file_path_pub_id, out_path, range_start, range_end) -> bool:
         tunnel = await self.open_stream(addr, port)
         try:
             await with_timeout("p2p.frame_send", tunnel.send(wire.pack(
                 "p2p.file.request", library_id=library_id,
                 location_pub_id=location_pub_id, file_path_pub_id=file_path_pub_id,
-                range_start=range_start, range_end=range_end)))
+                range_start=range_start, range_end=range_end,
+                tp=tracing.traceparent())))
             try:
                 resp = wire.unpack("p2p.file.response", await with_timeout(
                     "p2p.file.response", tunnel.recv()))
@@ -189,12 +212,17 @@ class P2PManager:
         """Pair a library with a peer: exchange instance rows so sync can
         flow (upstream p2p/pairing protocol v1 as one signed round-trip),
         then announce so the peer pulls the existing op log."""
+        with tracing.span("p2p/pair", peer=f"{addr}:{port}", library=str(library.id)):
+            return await self._pair(addr, port, library)
+
+    async def _pair(self, addr: str, port: int, library) -> bool:
         tunnel = await self.open_stream(addr, port)
         try:
             async with deadline("p2p.pair"):
                 info = await asyncio.to_thread(self._instance_info, library)
                 await tunnel.send(wire.pack(
-                    "p2p.pair.request", library_id=str(library.id),
+                    "p2p.pair.request", tp=tracing.traceparent(),
+                    library_id=str(library.id),
                     library_name=library.config.name,
                     # our LISTENING port: the TCP source port is ephemeral
                     listen_port=self.port, instance=info))
@@ -231,22 +259,33 @@ class P2PManager:
         try:
             header = await with_timeout("p2p.header_recv", tunnel.recv())
             t = header.get("t") if isinstance(header, dict) else None
+            tp = header.get("tp") if isinstance(header, dict) else None
+            # Continue the dialer's trace: every handler span below lands in
+            # the caller's trace (sync.pull re-anchors to the same header).
             # Each branch holds the header to its contract before reading
             # a field; a WireError lands in the generic handler below.
-            if t == "ping":
-                wire.unpack("p2p.ping", header)
-                await with_timeout("p2p.frame_send", tunnel.send(wire.pack("p2p.pong")))
-            elif t == "spacedrop":
-                await self._handle_spacedrop(tunnel,
-                                             wire.unpack("p2p.spacedrop.offer", header))
-            elif t == "pair":
-                await self._handle_pair(tunnel, wire.unpack("p2p.pair.request", header))
-            elif t == "file":
-                await self._handle_file(tunnel, wire.unpack("p2p.file.request", header))
-            elif t == "sync":
-                if self.networked is not None:
-                    await self.networked.handle_sync_stream(tunnel, header)
-            # any other header (the obs plane's included) is closed unanswered
+            with tracing.continue_trace(tp):
+                if t == "ping":
+                    with tracing.span("p2p/ping"):
+                        wire.unpack("p2p.ping", header)
+                        await with_timeout("p2p.frame_send",
+                                           tunnel.send(wire.pack("p2p.pong")))
+                elif t == "spacedrop":
+                    with tracing.span("p2p/spacedrop"):
+                        await self._handle_spacedrop(
+                            tunnel, wire.unpack("p2p.spacedrop.offer", header))
+                elif t == "pair":
+                    with tracing.span("p2p/pair"):
+                        await self._handle_pair(tunnel, wire.unpack("p2p.pair.request", header))
+                elif t == "file":
+                    with tracing.span("p2p/file"):
+                        await self._handle_file(tunnel, wire.unpack("p2p.file.request", header))
+                elif t == "sync":
+                    # handle_sync_stream opens its own sync.pull span,
+                    # parented on the originator's sync.serve span.
+                    if self.networked is not None:
+                        await self.networked.handle_sync_stream(tunnel, header)
+                # any other header (the obs plane's) is closed unanswered
         except (asyncio.IncompleteReadError, ConnectionError):
             pass
         except Exception as e:

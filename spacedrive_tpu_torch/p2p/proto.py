@@ -22,7 +22,8 @@ import os
 import struct
 from typing import Any, Optional, Tuple
 
-from .. import _msgpack, channels
+from .. import _msgpack, channels, chaos
+from ..telemetry import P2P_TUNNEL_BYTES_RECV, P2P_TUNNEL_BYTES_SENT
 from ..timeouts import deadline
 from . import _crypto, wire
 from .identity import Identity, RemoteIdentity
@@ -70,34 +71,52 @@ class Tunnel:
         self._send_ctr = 0
         self._recv_ctr = 0
         # frames sealed by send_nowait and not yet drained
-        self._frames = channels.FrameWindow()
+        self._frames = channels.window("p2p.tunnel.frames")
         stats["tunnels"] += 1
 
     @staticmethod
     def _nonce(counter: int) -> bytes:
         return counter.to_bytes(12, "big")
 
-    def _seal(self, plain: bytes) -> bytes:
+    def _seal(self, plain: bytes, tamper: bool = False) -> bytes:
+        """Encrypt, frame and count. `tamper` (the chaos `corrupt` fault
+        only) flips one ciphertext bit after sealing, so the peer's AEAD
+        open fails loudly."""
         sealed = self._send.encrypt(self._nonce(self._send_ctr), plain, None)
         self._send_ctr += 1
+        if tamper:
+            sealed = bytes([sealed[0] ^ 0x01]) + sealed[1:]
         stats["bytes_sent"] += len(sealed)
+        P2P_TUNNEL_BYTES_SENT.inc(len(sealed))
         write_frame(self.writer, sealed)
         return sealed
 
     def _open(self, sealed: bytes) -> bytes:
         stats["bytes_recv"] += len(sealed)
+        P2P_TUNNEL_BYTES_RECV.inc(len(sealed))
         plain = self._recv.decrypt(self._nonce(self._recv_ctr), sealed, None)
         self._recv_ctr += 1
         return plain
 
     async def send(self, msg: Any) -> None:
+        # Chaos seam (send half): drop = the frame is lost on the wire
+        # (never sealed; the peer's receive budget notices); corrupt =
+        # sealed, then tampered (the peer's AEAD open fails).
+        f = chaos.hit("p2p.tunnel.frame")
+        if f is not None and await chaos.apply_async(f):
+            return  # dropped
         payload = _msgpack.packb(msg)
         audit_frame(msg, "out", len(payload))
-        self._seal(payload)
+        self._seal(payload, tamper=f is not None and f.kind == "corrupt")
         await self.writer.drain()
         self._frames.note_drain()
 
     async def recv(self) -> Any:
+        # Chaos seam (receive half): delay, wedge and disconnect only
+        # (dropping a received frame would desync the counter nonce).
+        f = chaos.hit("p2p.tunnel.frame", only=("delay", "disconnect", "wedge"))
+        if f is not None:
+            await chaos.apply_async(f)
         plain = self._open(await read_frame(self.reader))
         msg = _msgpack.unpackb(plain)
         audit_frame(msg, "in", len(plain))

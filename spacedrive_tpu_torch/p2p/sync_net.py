@@ -23,7 +23,7 @@ import logging
 import uuid as uuidlib
 from typing import Dict, Optional, Tuple
 
-from .. import channels, flags, tasks, timeouts
+from .. import channels, flags, tasks, timeouts, tracing
 from ..sync.clone_serve import serve_clone_stream, serve_gate
 from ..sync.crdt import CRDTOperation
 from ..sync.ingest import Ingester, MessagesEvent, ReqKind, pump_clone_stream
@@ -79,7 +79,7 @@ class NetworkedLibraries:
         # always wins over discovery and the cache
         self._routes: Dict[bytes, Tuple[str, int]] = {}
         # identity bytes → the last route that carried a healthy tunnel
-        self._route_cache = channels.RouteCache()
+        self._route_cache = channels.bounded_dict("p2p.route_cache")
         # a peer that failed its last announce climbs this ladder
         self._announce_backoff = timeouts.RetrySchedule("p2p.announce.reconnect")
         self._clone_gate = serve_gate()
@@ -181,7 +181,12 @@ class NetworkedLibraries:
             if not self._announce_backoff.allowed(key):
                 continue  # backing off; the peer pulls on any later announce
             try:
-                await self._serve_pull_loop(library, identity, route)
+                # The serving half of the cross-node sync trace: this span
+                # roots it (or continues the caller's), and its traceparent
+                # travels in the announce so the responder's sync.pull span
+                # lands in the same trace.
+                with tracing.span("sync.serve", library=str(library.id)):
+                    await self._serve_pull_loop(library, identity, route)
                 self._route_cache[key] = route
                 self._announce_backoff.success(key)
             except (ConnectionError, OSError, asyncio.IncompleteReadError,
@@ -194,7 +199,8 @@ class NetworkedLibraries:
         tunnel = await self.p2p.open_stream(*route, expected=identity)
         try:
             await with_timeout("p2p.frame_send", tunnel.send(
-                wire.pack("sync.announce", library_id=str(library.id))))
+                wire.pack("sync.announce", library_id=str(library.id),
+                          tp=tracing.traceparent())))
             # The clone fast path runs at most once a tunnel: a receiver
             # whose watermark stays frozen degrades to the per-op loop.
             clone_served = False
@@ -238,9 +244,14 @@ class NetworkedLibraries:
         if lib is None:
             await with_timeout("p2p.frame_send", tunnel.send(wire.pack("sync.done")))
             return
-        lock = self._ingest_locks.setdefault(lib.id, asyncio.Lock())
-        async with lock:
-            await self._pull(lib, tunnel)
+        # Continue the originator's trace (the header's tp): this node's
+        # pull spans, and the ingester task spawned under them, join the
+        # serving node's trace instead of rooting a fresh one.
+        with tracing.continue_trace(header.get("tp")), \
+                tracing.span("sync.pull", library=str(lib.id)):
+            lock = self._ingest_locks.setdefault(lib.id, asyncio.Lock())
+            async with lock:
+                await self._pull(lib, tunnel)
         self.node.events.invalidate_query(lib.id, "search.paths")
 
     async def _pull(self, library, tunnel) -> None:
@@ -265,7 +276,7 @@ class NetworkedLibraries:
                     continue
                 await with_timeout("p2p.frame_send", tunnel.send(wire.pack(
                     "sync.pull.request", clocks=[[i, t] for i, t in req.timestamps],
-                    count=OPS_PER_REQUEST)))
+                    count=OPS_PER_REQUEST, tp=tracing.traceparent())))
                 page = await with_timeout("sync.pull.page", tunnel.recv())
                 if isinstance(page, dict) and page.get("kind") == "blob_stream":
                     # the clone fast path answered: drain it, then let the

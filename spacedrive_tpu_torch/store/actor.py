@@ -43,7 +43,9 @@ from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from typing import Any, Callable, Deque, List, Optional
 
-from .. import flags
+from .. import chaos, flags
+from ..telemetry import (STORE_GROUP_COMMITS, STORE_GROUP_SHUTDOWN_DRAINS, STORE_GROUP_SIZE,
+                         STORE_GROUP_WAIT_SECONDS)
 
 __all__ = ["WriteActor", "WriteActorClosed", "WriteTxStalled"]
 
@@ -72,7 +74,7 @@ class _Ticket:
     ``grant_evt`` and ``done_evt``. A closure ticket carries ``fn``, runs
     on the actor's thread and resolves ``future`` after the commit."""
 
-    __slots__ = ("fn", "loop", "future", "grant_evt", "done_evt", "commit_evt",
+    __slots__ = ("fn", "loop", "future", "enq_t", "grant_evt", "done_evt", "commit_evt",
                  "conn", "grant_exc", "commit_exc", "body_ok", "body_fatal",
                  "result", "resolved")
 
@@ -81,6 +83,7 @@ class _Ticket:
         self.fn = fn
         self.loop = loop
         self.future = future
+        self.enq_t = time.perf_counter()
         self.grant_evt = threading.Event()
         self.done_evt = threading.Event()
         self.commit_evt = threading.Event()
@@ -168,6 +171,7 @@ class WriteActor:
                     return
                 t = self._q.popleft()
                 self._cv.notify_all()
+            STORE_GROUP_SHUTDOWN_DRAINS.inc()
             self._resolve(t, WriteActorClosed(
                 f"write actor for {self._db.path!r} shut down with this batch "
                 "still queued: it was not written"))
@@ -224,12 +228,22 @@ class WriteActor:
                         if nxt is None:
                             break
                     self._serve(nxt, conn, group)
+                f = chaos.hit("store.group_commit", only=("delay", "error"))
+                if f is not None:
+                    # delay: the kill -9 durability window (the group is
+                    # written but not committed). error: the group fails
+                    # to every waiter (ChaosError).
+                    chaos.apply_sync(f)
         except BaseException as e:  # noqa: BLE001 (handed to every ticket below)
             commit_exc = e
         if commit_exc is None and group:
+            STORE_GROUP_COMMITS.inc()
+            STORE_GROUP_SIZE.observe(len(group))
             self.groups += 1
             self.batches += len(group)
+        now = time.perf_counter()
         for t in group:
+            STORE_GROUP_WAIT_SECONDS.observe(now - t.enq_t)
             self._resolve(t, commit_exc)
 
     def _serve(self, t: _Ticket, conn: sqlite3.Connection, group: List[_Ticket]) -> None:

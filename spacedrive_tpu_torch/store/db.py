@@ -38,7 +38,8 @@ from concurrent.futures import Future
 from contextlib import contextmanager
 from typing import Any, Dict, Iterable, List, Optional, Sequence
 
-from .. import flags
+from .. import chaos, flags, timeouts
+from ..telemetry import STORE_BUSY_RETRIES
 from . import actor as actor_mod
 from . import models, statements
 from ..sync.crdt import uuid4_bytes
@@ -215,14 +216,32 @@ class Database:
 
     @staticmethod
     def _commit_with_retry(conn: sqlite3.Connection) -> None:
-        for delay in _BUSY_DELAYS_S + (None,):
+        """COMMIT under the declared ``store.busy`` backoff: SQLite BUSY
+        (another process holding the file lock, or an injected
+        ``store.commit`` fault) costs bounded jittered latency
+        (``sd_store_busy_retries_total``) instead of the whole
+        transaction; an exhausted ladder re-raises the BUSY, and its
+        give-up reaches the incident observatory."""
+        b: Optional[timeouts.Backoff] = None
+        while True:
+            f = chaos.hit("store.commit", only=("delay", "error"))
             try:
+                if f is not None:
+                    if f.kind == "error":
+                        raise sqlite3.OperationalError("database is locked")
+                    chaos.apply_sync(f)  # delay: fsync weather
                 conn.commit()
                 return
             except sqlite3.OperationalError as e:
-                if not _busy(e) or delay is None:
+                if not _busy(e):
                     raise
-                time.sleep(delay)
+                if b is None:
+                    b = timeouts.Backoff("store.busy")
+                d = b.next_delay()
+                if d is None:
+                    raise
+                STORE_BUSY_RETRIES.inc()
+                time.sleep(d)
 
     @contextmanager
     def _savepoint(self, conn: sqlite3.Connection):

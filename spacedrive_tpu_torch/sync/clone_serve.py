@@ -17,7 +17,7 @@ from __future__ import annotations
 import asyncio
 from typing import Optional
 
-from .. import channels
+from .. import channels, chaos
 from ..p2p import wire
 from ..timeouts import with_timeout
 
@@ -31,19 +31,22 @@ CLONE_WINDOW = channels.capacity("p2p.tunnel.frames")
 pages_relayed = [0]
 
 
-def serve_gate() -> asyncio.Semaphore:
-    """One node's fair-share page-fetch gate, shared by its clone streams."""
-    return channels.serve_semaphore()
+def serve_gate() -> channels.Channel:
+    """One node's fair-share page-fetch gate (the declared block channel
+    ``sync.clone.serve``), shared by its clone streams."""
+    return channels.channel("sync.clone.serve")
 
 
-async def _next_item(stream, gate: Optional[asyncio.Semaphore]):
+async def _next_item(stream, gate: Optional[channels.Channel]):
+    """The stream's next item, fetched off-loop under a FIFO slot of the
+    gate: a full gate's put waits under the ``sync.clone.serve`` budget."""
     if gate is None:
         return await asyncio.to_thread(next, stream, None)
-    await with_timeout("sync.clone.serve", gate.acquire())
+    await gate.put(None)
     try:
         return await asyncio.to_thread(next, stream, None)
     finally:
-        gate.release()
+        gate.get_nowait()
 
 
 async def _await_ack(tunnel) -> None:
@@ -55,7 +58,7 @@ async def _await_ack(tunnel) -> None:
 
 
 async def serve_clone_stream(sync, tunnel, clocks,
-                             gate: Optional[asyncio.Semaphore] = None) -> bool:
+                             gate: Optional[channels.Channel] = None) -> bool:
     """Stream the eligible blob pages to the pulling peer. Returns False
     (nothing sent) when the peer is not a fresh clone target: the caller
     then serves the per-op page."""
@@ -76,8 +79,13 @@ async def serve_clone_stream(sync, tunnel, clocks,
                 await with_timeout("p2p.frame_send", tunnel.send(
                     wire.pack("clone.ops", ops=[op.to_wire() for op in item])))
                 continue
-            tunnel.send_nowait(wire.pack("clone.page", **item))
-            pages_relayed[0] += 1
+            # Chaos seam: a dropped page starves the ack window, a
+            # disconnect tears the stream mid-clone, a wedge parks it
+            # against the drain budget.
+            f = chaos.hit("sync.clone.page")
+            if not (f is not None and await chaos.apply_async(f)):
+                tunnel.send_nowait(wire.pack("clone.page", **item))
+                pages_relayed[0] += 1
             inflight += 1
             if inflight >= CLONE_WINDOW:
                 # one backpressure point a window, not a frame

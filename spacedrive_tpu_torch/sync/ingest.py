@@ -21,7 +21,7 @@ import enum
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
-from .. import channels, tasks
+from .. import channels, chaos, tasks
 from ..p2p import wire
 from ..timeouts import with_timeout
 from .crdt import CRDTOperation
@@ -73,6 +73,12 @@ async def pump_clone_stream(sync: SyncManager, recv, send,
         return sync.timestamps.get(pub, 0) < expect.get(pub, 0)
 
     async def _send_ack(pub: bytes, fast: bool) -> None:
+        # Chaos seam: a dropped or torn ack leaves the originator's window
+        # full until its sync.clone.ack budget fires; the per-op pull loop
+        # then finishes the tail from the durable watermark.
+        f = chaos.hit("sync.clone.ack", only=("delay", "drop", "disconnect"))
+        if f is not None and await chaos.apply_async(f):
+            return  # dropped on the wire
         await with_timeout("sync.clone.ack_send", send(wire.pack(
             "clone.ack", ts=sync.timestamps.get(pub, 0), fast=bool(fast))))
 
@@ -125,8 +131,8 @@ class Ingester:
     def __init__(self, sync: SyncManager, owner: str = "sync-ingest"):
         self.sync = sync
         self._owner = owner
-        self.events = channels.EventInbox()
-        self.requests = channels.RequestOutbox()
+        self.events = channels.channel("sync.ingest.events")
+        self.requests = channels.channel("sync.ingest.requests")
         self.errors: List[str] = []
         self._task: Optional[asyncio.Task] = None
 

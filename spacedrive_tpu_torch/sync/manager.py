@@ -34,6 +34,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+from .. import chaos
 from ..store import models as M
 from ..store.db import Database
 from . import opblob
@@ -562,6 +563,12 @@ class SyncManager:
         re-serves it."""
         if not ops:
             return 0, []
+        # Chaos seam: error fails the page like a poisoned batch (the pull
+        # loop's frozen watermark re-serves it); delay is slow-apply
+        # weather on this worker thread (wire callers ingest off-loop).
+        f = chaos.hit("sync.ingest.apply", only=("delay", "error"))
+        if f is not None:
+            chaos.apply_sync(f)
         self._ensure_row_oplog()
         self._ensure_sync_indexes()
         for op in ops:

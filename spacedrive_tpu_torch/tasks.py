@@ -7,21 +7,27 @@ only weak ones, so a task nobody holds can be collected mid-flight), each
 task carries an owner name, and ``reap(owner)`` cancels and awaits what an
 owner still runs. ``cancel_and_gather`` is the stop idiom: it swallows
 only the victims' cancellation, while the caller's own cancellation still
-propagates. The JAX package's telemetry, sanitizer hooks and reap grace
-period are left to it.
+propagates. ``owners`` and ``owner_label`` give the health observatory's
+sampler its census of live tasks by owner root, and ``spawn`` counts into
+``sd_task_spawned_total{owner}``. The JAX package's other telemetry, its
+sanitizer hooks and reap grace period are left to it.
 """
 
 from __future__ import annotations
 
 import asyncio
 import itertools
+import re
 import threading
 from typing import Coroutine, Dict, List, Optional
 
-__all__ = ["spawn", "live", "reap", "cancel_and_gather", "unique_owner",
-           "TASK_NAME_PREFIX"]
+from .telemetry import TASK_SPAWNED
+
+__all__ = ["spawn", "live", "owners", "reap", "cancel_and_gather", "unique_owner",
+           "owner_label", "TASK_NAME_PREFIX"]
 
 TASK_NAME_PREFIX = "sdtpu:"
+_OWNER_SEQ_RE = re.compile(r"#\d+")
 
 _registry: Dict[asyncio.Task, str] = {}  # task → owner
 _registry_lock = threading.Lock()
@@ -32,6 +38,12 @@ def unique_owner(prefix: str) -> str:
     """A process-unique owner root (``node#3``): two nodes in one process
     never reap each other's tasks."""
     return f"{prefix}#{next(_owner_seq)}"
+
+
+def owner_label(owner: str) -> str:
+    """Telemetry label of an owner path: the per-instance ``#seq`` is
+    stripped, so label cardinality stays bounded by the component tree."""
+    return _OWNER_SEQ_RE.sub("", owner)
 
 
 def _in_subtree(owner: str, root: str) -> bool:
@@ -58,6 +70,7 @@ def spawn(name: str, coro: Coroutine, owner: str = "proc") -> asyncio.Task:
     with _registry_lock:
         _registry[task] = owner
     task.add_done_callback(_on_task_done)
+    TASK_SPAWNED.labels(owner=owner_label(owner)).inc()
     return task
 
 
@@ -67,6 +80,12 @@ def live(owner: Optional[str] = None) -> List[asyncio.Task]:
     with _registry_lock:
         items = list(_registry.items())
     return [t for t, o in items if owner is None or _in_subtree(o, owner)]
+
+
+def owners() -> List[str]:
+    """The owner of each registered task that has not finished."""
+    with _registry_lock:
+        return list(_registry.values())
 
 
 async def cancel_and_gather(*tasks: Optional[asyncio.Task]) -> None:

@@ -94,7 +94,7 @@ def test_not_yet_names_only_observability_crypto_and_convert_image():
             assert "item 5" in item, name
         else:
             assert name == "files.convertImage" and "item 11" in item
-    assert NOT_YET_ROUTES == {"/metrics": NOT_YET["node.metrics"]}
+    assert NOT_YET_ROUTES == {}
     assert {"buildInfo", "nodeState", "toggleFeatureFlag"} <= set(PORT.procedures)
 
 
@@ -359,7 +359,7 @@ def test_rpc_errors_keep_their_codes(tmp_path):
         router = mount_router(node)
         try:
             with pytest.raises(RpcError) as e:
-                await router.dispatch("node.metrics")
+                await router.dispatch("fleet.health")  # still NOT_YET
             assert e.value.code == "NOT_FOUND"
             with pytest.raises(RpcError) as e:
                 await router.dispatch("jobs.progress")
@@ -471,4 +471,94 @@ def test_auth_device_flow_over_the_subscription(tmp_path):
             unsub()
         finally:
             await node.shutdown()
+    asyncio.run(main())
+
+
+async def observability_script(router, node, root):
+    """The 9 observability names through one router, on an incident store
+    of the node's own (the observatory is process-global in both
+    packages), normalised to what the two packages must share."""
+    from spacedrive_tpu import flight as jflight
+    from spacedrive_tpu import health as jhealth
+    from spacedrive_tpu import incidents as jinc
+    from spacedrive_tpu import tracing as jtracing
+    from spacedrive_tpu_torch import incidents as pinc
+    from spacedrive_tpu_torch import tracing as ptracing
+
+    jax = isinstance(node, JaxNode)
+    tracing, incidents = (jtracing, jinc) if jax else (ptracing, pinc)
+    node.incidents = incidents.IncidentObservatory(
+        os.path.join(node.data_dir, "scripted-incidents"), events=node.events,
+        node_id="n", node_name="t")
+    out = []
+    metrics = await router.dispatch("node.metrics")
+    out.append(("node.metrics", sorted((name, s["kind"]) for name, s in metrics.items())))
+    with tracing.span("rpc/scripted"):
+        with tracing.span("job.step", job="scripted", step=1):
+            pass
+        trace = tracing.current_trace_id()
+    spans = await router.dispatch("node.spans", {"trace": trace, "limit": 10})
+    out.append(("node.spans", [(s["span"], s["ok"], "parent" in s) for s in spans]))
+    doc = await router.dispatch("node.trace.export")
+    out.append(("node.trace.export", (jflight.validate_chrome_trace(doc),
+                                      "rpc/scripted" in {e.get("name") for e in
+                                                         doc["traceEvents"]})))
+    snap = await router.dispatch("node.health")
+    out.append(("node.health", (jhealth.validate_health_snapshot(snap), sorted(snap["states"]))))
+    got = []
+    for path in ("node.health", "node.telemetry", "incidents"):
+        unsub = await router.subscribe(path, None, got.append)
+        node.incidents.observe_give_up("store.busy", 5) if path == "incidents" else None
+        unsub()
+    out.append(("subscriptions", [e["type"] for e in got]))
+    def ids_out(hs):  # a bundle id is its time in hex, then its fingerprint
+        return [{**h, "id": h["id"].split("-")[1]} for h in hs]
+
+    headers = await router.dispatch("incidents.list")
+    out.append(("incidents.list", ids_out(headers)))
+    bundle = await router.dispatch("incidents.get", {"id": headers[0]["id"]})
+    out.append(("incidents.get", (jinc.validate_incident_bundle(bundle), sorted(bundle))))
+    out.append(("incidents.ack", await router.dispatch("incidents.ack", {"id": headers[0]["id"]})))
+    out.append(("incidents.list acked",
+                ids_out(await router.dispatch("incidents.list", {"limit": 1}))))
+    node.incidents.close()
+    return out
+
+
+def test_the_observability_procedures_give_the_jax_routers_results(tmp_path):
+    theirs, mine = _run_both(tmp_path, observability_script)
+    assert [label for label, _ in mine] == [label for label, _ in theirs]
+    for (label, a), (_, b) in zip(mine, theirs):
+        assert a == b, label
+    got = dict(mine)
+    assert len(got["node.metrics"]) == 103
+    assert got["node.spans"] == [["job.step", True, True], ["rpc/scripted", True, False]]
+    assert got["node.trace.export"] == [[], True]
+    assert got["subscriptions"] == ["HealthSnapshot", "TelemetrySnapshot", "Incident"]
+    assert got["incidents.ack"] == {"acked": True}
+
+
+def test_metrics_route_serves_the_prometheus_text(tmp_path):
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.api.server import ApiServer
+
+    async def main():
+        node = Node(str(tmp_path / "n"), device="cpu")
+        server = ApiServer(node)
+        port = await server.start("127.0.0.1", 0)
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            writer.write(b"GET /metrics HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n")
+            await writer.drain()
+            raw = await asyncio.wait_for(reader.read(), 10)
+            writer.close()
+        finally:
+            await server.stop()
+            await node.shutdown()
+        head, _, body = raw.partition(b"\r\n\r\n")
+        assert head.startswith(b"HTTP/1.1 200")
+        assert f"Content-Type: {telemetry.PROMETHEUS_CONTENT_TYPE}".encode() in head
+        text = body.decode()
+        assert "# TYPE sd_api_requests_total counter" in text
+        assert 'sd_api_requests_total{route="/metrics"}' in text
     asyncio.run(main())

@@ -646,6 +646,9 @@ def test_two_nodes_clone_a_library_scanned_on_the_card(cuda, tmp_path):
         (root / f"f{i:04d}.bin").write_bytes(rng.integers(0, 256, 2000 + i, np.uint8).tobytes())
     big = tmp_path / "big.bin"
     big.write_bytes(rng.integers(0, 256, 9 << 20, np.uint8).tobytes())
+    # The pure-Python reference hash of 9 MiB takes seconds: off the event
+    # loop, which the tests' sanitizer holds to its stall threshold.
+    want = cas.file_checksum(str(big))
 
     async def main():
         a, b = Node(str(tmp_path / "a")), Node(str(tmp_path / "b"))
@@ -671,7 +674,7 @@ def test_two_nodes_clone_a_library_scanned_on_the_card(cuda, tmp_path):
             b.p2p.on_spacedrop = lambda peer, req: drop
             assert await a.p2p.spacedrop("127.0.0.1", pb, str(big)) == "sent"
             got, errors = validator.checksums_for_files([drop], b.device)
-            assert not errors and got[0] == cas.file_checksum(str(big))
+            assert not errors and got[0] == want
         finally:
             await a.shutdown()
             await b.shutdown()
@@ -715,3 +718,64 @@ def test_the_api_path_launches_every_main_path_kernel(cuda, tmp_path, monkeypatc
         assert counts["api"][name] > 0, name
     assert out["pairs"] == chip_smoke.API_PAIRS
     assert out["dup_groups"] == chip_smoke.API_DUP_GROUPS
+
+
+def test_the_sync_guard_raises_inside_a_device_scope_and_lifts_in_a_declared_io(cuda, tmp_path):
+    """The kernel registry armed in raise mode: ``.item()`` on a CUDA tensor
+    inside ``device_scope`` raises (torch's sync debug error) and is recorded
+    as ``host_transfer``; inside a declared ``io`` it passes; the identify
+    main path runs under the armed guard with no record."""
+    from spacedrive_tpu_torch.ops import kernel_registry
+
+    got = []
+    kernel_registry.arm("raise", lambda kind, detail, may_raise: got.append(kind))
+    try:
+        x = torch.ones(4, device="cuda")
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            with kernel_registry.device_scope("test.witness"):
+                x.sum().item()
+        assert got == ["host_transfer"]
+        with kernel_registry.device_scope("test.declared"):
+            with kernel_registry.io("cas.ids"):
+                assert x.sum().item() == 4.0
+        files = []
+        for i, size in enumerate((10, 5000, 150_000, 300_000)):
+            p = tmp_path / f"f{i}"
+            p.write_bytes(bytes(range(256)) * (size // 256) + bytes(size % 256))
+            files.append((str(p), size))
+        ids, errors = staging.cas_ids_for_files(files, backend="cuda")
+        plain, _ = staging.cas_ids_for_files(files, backend="plain")
+        assert ids == plain and not errors and got == ["host_transfer"]
+        assert kernel_registry.guard_mode() == "default"
+    finally:
+        kernel_registry.disarm()
+
+
+def test_the_rings_kernel_lanes_leave_out_the_wait_behind_earlier_batches(cuda, tmp_path):
+    """A kernel slowed by a ~10 ms spin on small, quickly staged batches: at
+    depth 3 each batch's copy ends while earlier kernels still hold the
+    compute stream. Each batch's kernel lane is its own kernel only, so the
+    lanes of the device follow one another without overlap, and every
+    window is bound by the kernel."""
+    from spacedrive_tpu_torch import flight
+
+    def slow_k1(w, n):
+        torch.cuda._sleep(20_000_000)
+        return blake3_cuda.blake3_words(w, n)
+
+    batches = overlap.make_sparse_corpus(str(tmp_path / "c"), 64, 200_000, 8)
+    flight.RECORDER.clear()
+    digs, _stats = overlap.run_overlapped(batches, slow_k1, calibrate_every=len(batches),
+                                          depth=3, devices=["cuda"])
+    events = flight.RECORDER.snapshot()
+    plain, _ = overlap.run_overlapped(batches, calibrate_every=len(batches),
+                                      depth=1, devices=["cuda"])
+    assert all(np.array_equal(a, b) for a, b in zip(digs, plain))
+    kernels = sorted((e for e in events if e["lane"] == "kernel"), key=lambda e: e["ts_us"])
+    assert sorted(e["batch"] for e in kernels) == list(range(1, len(batches)))
+    assert all(e["dur_us"] > 5_000 for e in kernels)
+    for prev, nxt in zip(kernels, kernels[1:]):
+        assert nxt["ts_us"] >= prev["ts_us"] + prev["dur_us"] - 100, (prev, nxt)
+    windows = [e for e in events if e["lane"] == "window"]
+    assert len(windows) == len(batches) - 1
+    assert {w["binding"] for w in windows} == {"kernel"}

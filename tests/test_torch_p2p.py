@@ -579,3 +579,52 @@ def test_a_restarted_node_re_arms_its_paired_peers(nodes, tmp_path):
             await a2.shutdown()
             await b.shutdown()
     _run(main())
+
+
+def test_a_traceparent_sent_by_either_node_is_the_receivers_trace(tmp_path):
+    """A traced ping from each node lands in the other's p2p/ping span under
+    the sender's trace id, parented on the sender's span; a pairing's sync
+    stream puts the receiver's sync.pull span in the originator's
+    sync.serve trace, both ways."""
+    from spacedrive_tpu import tracing as jtracing
+    from spacedrive_tpu_torch import tracing as ptracing
+
+    j = JaxNode(str(tmp_path / "jax"))
+    p = Node(str(tmp_path / "port"), device="cpu")
+
+    async def main():
+        await j.start()
+        pj = await j.start_p2p(host="127.0.0.1", enable_discovery=False)
+        pp, = await _started(p)
+        try:
+            for sender, stracing, receiver, rtracing, port in (
+                    (j, jtracing, p, ptracing, pp), (p, ptracing, j, jtracing, pj)):
+                with stracing.span("rpc/ping"):
+                    trace = stracing.current_trace_id()
+                    await sender.p2p.ping("127.0.0.1", port)
+                [mine] = [s for s in stracing.recent_spans(limit=50, trace_id=trace)
+                          if s["span"] == "p2p/ping"]
+                got = await until(lambda: [s for s in rtracing.recent_spans(
+                    limit=200, trace_id=trace) if s["span"] == "p2p/ping"], "the remote span")
+                assert got[0]["parent"] == mine["id"]
+            lib_j = j.create_library("traced-j")
+            _write_tag(lib_j, "j")
+            lib_p = p.create_library("traced-p")
+            _write_tag(lib_p, "p")
+            p.p2p.on_pairing_request = lambda peer, info: True
+            j.p2p.on_pairing_request = lambda peer, info: True
+            assert await j.p2p.pair("127.0.0.1", pp, lib_j)
+            assert await p.p2p.pair("127.0.0.1", pj, lib_p)
+            for server, stracing, puller, rtracing, lib in (
+                    (j, jtracing, p, ptracing, lib_j), (p, ptracing, j, jtracing, lib_p)):
+                pulls = await until(lambda: [s for s in rtracing.recent_spans(limit=500)
+                                             if s["span"] == "sync.pull"
+                                             and s.get("library") == str(lib.id)],
+                                    "the receiver's sync.pull span")
+                serves = {s["trace"] for s in stracing.recent_spans(limit=500)
+                          if s["span"] == "sync.serve" and s.get("library") == str(lib.id)}
+                assert pulls[0]["trace"] in serves
+        finally:
+            await j.shutdown()
+            await p.shutdown()
+    _run(main())
